@@ -1,18 +1,31 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile off,pair   # device time by op, nothing else
 
 Drives the port's main path: the x8 (d4) TTA predictor over the full-width
-flagship UnetPlusPlusStar, with weights made from a seed. Phases:
+flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
+``pallas_tail`` off and under each of its modes (v1, pair, pair_up). Phases:
 
-1. device: the card's name and power limit; build the CUDA kernels from
-   ``eyediseasesegmentation_tpu_torch/csrc`` and print the build time;
+1. device: the card's name and power limit; build the four CUDA kernel
+   libraries from ``eyediseasesegmentation_tpu_torch/csrc`` (one nvcc per
+   source, started together) and print the build times;
 2. kernel K1 (fused axial attention) against its plain PyTorch version at the
    five main-path shapes, fp32 (TF32 off) and bf16, with CUDA-event times;
-3. slice parity: one 1024² fp32 forward on the GPU (kernel) against the same
-   forward on the CPU (plain path);
-4. the bench workload: d4 TTA in bf16 on 3 random 2848×4288 uint8 images,
-   images/sec and peak memory, with the K1 launch count per forward.
+3. kernels K3 (scSE-gated conv), K2 (decode pair, ``up_part0`` off and on) at
+   the four main-path node shapes and K4 (plain conv) at two of them: fp32 at
+   batch 1 and bf16 at batch 24 against their plain versions, with CUDA-event
+   times of the kernel, the plain version and the library composition the
+   logical path runs for the same stage (eager gating + ``torch.cat`` + cuDNN
+   conv + BN + ReLU [+ conv2 + pooled sum]); each kernel's bound on this card
+   from the bytes and operations of the call;
+4. slice parity: one 1024² fp32 forward on the GPU with ``pallas_tail`` off
+   and under each mode (``fast_min_res=256``) against the same forward on the
+   CPU (plain path), with the launches per forward;
+5. the bench workload: d4 TTA in bf16 on 3 random 2848×4288 uint8 images,
+   images/sec and peak memory, off and under each mode, with the launch
+   counts of the run; K4, which no model calls, is driven through its public
+   function at the decode node's conv2 shape.
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -33,9 +46,18 @@ FULL_HW = (2848, 4288)      # IDRiD native resolution
 SCALE = 1024
 BATCH = 3
 WARMUP, ITERS = 2, 8
+TAIL_WARMUP, TAIL_ITERS = 1, 3      # the pallas_tail modes: fewer iterations
+VIEWS = 8 * BATCH                   # images of one d4 forward
+FAST_MIN_RES = 256                  # the bench workload's (4 kernel nodes)
 # tolerances, as fractions of max|reference|
 K1_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+CONV_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+CSUM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SLICE_TOL = 1e-3
+# the card's peaks (NVIDIA H100 SXM data sheet): dense bf16 tensor-core rate
+# and device-memory rate
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+TAIL_MODES = {"off": None, "v1": "v1", "pair": "pair", "pair_up": "pair_up"}
 
 # (L, Cq, Cv or None for self-attention, heads, dv, sequences per call at
 # 24 views of 1024², calls per forward) of K1's main-path callers
@@ -45,6 +67,25 @@ K1_SHAPES = {
     "x_0_0": (32, 2048, 64, 4, 16, 768, 2),
     "x_1_1": (64, 1024, 32, 4, 8, 1536, 2),
     "x_0_1": (64, 256, 64, 4, 16, 1536, 2),
+}
+# part channels → cout @ resolution of the decode nodes on the kernel route
+# at 24 views of 1024² (x_0_2 only with fast_min_res=256)
+NODE_SHAPES = {
+    "x_3_3": ([256, 64], 64, 512),
+    "x_2_3": ([256, 64, 64], 64, 512),
+    "x_1_3": ([256, 64, 64, 64], 64, 512),
+    "x_0_2": ([128, 256, 256, 256], 64, 256),
+}
+K4_SHAPES = {"conv1_x_1_3": (448, 64, 512), "conv2": (64, 64, 512)}
+SOURCES = {
+    "axial_attention": ("axial_attention.cu",
+                        "eyediseasesegmentation_tpu/ops/axial_attention.py:90"),
+    "scse_conv": ("scse_conv.cu",
+                  "eyediseasesegmentation_tpu/ops/pallas_scse_conv.py:80"),
+    "decode_pair": ("decode_pair.cu",
+                    "eyediseasesegmentation_tpu/ops/pallas_decode_pair.py:64"),
+    "conv3x3": ("conv3x3.cu",
+                "eyediseasesegmentation_tpu/ops/pallas_conv.py:40"),
 }
 MODEL_PARAMS = {"encoder_name": "BoTSER50_Axial_Imagenet_3",
                 "decoder_attention_type": "scse", "base_dim": SCALE // 32,
@@ -67,9 +108,9 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, reps):
+def time_ms(fn, reps, warm=3):
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -110,13 +151,35 @@ def k1_inputs(shape, dtype, device, gen):
             dict(heads=H, dkq=dkq, dv=dv))
 
 
+def k1_work(shape):
+    """(operations, bytes) of one bf16 K1 call at a main-path shape: the
+    projections and the five attention products; each operand read once and
+    the output written once."""
+    L, cq, cv, H, dv, b, _ = K1_SHAPES[shape]
+    dkq = 8
+    cross = cv is not None
+    nkq = H * (2 * dkq + (0 if cross else dv))
+    nv = H * dv
+    flops = 2 * b * L * cq * nkq + (2 * b * L * cv * nv if cross else 0)
+    flops += 2 * b * H * L * L * (3 * dkq + 2 * dv)
+    elems = (b * L * cq + (b * L * cv if cross else 0) + cq * nkq
+             + (cv * nv if cross else 0) + b * L * nv + dv * L * L)
+    return flops, 2 * elems + 4 * 2 * dkq * L * L
+
+
+def bound_ms(flops, nbytes):
+    """The least time the card could take, and which side sets it."""
+    t_ops, t_bytes = 1e3 * flops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_kernel(device):
     """K1 against its plain version at the main-path shapes."""
     import torch
     from eyediseasesegmentation_tpu_torch.ops import axial_attention as AK
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, flops, nbytes = 0.0, 0.0, 0.0, 0, 0
     for shape, (_, _, _, _, _, b, calls) in K1_SHAPES.items():
         line = [f"K1 {shape} b={b}:"]
         for dname, tol in K1_TOL.items():
@@ -142,23 +205,265 @@ def phase_kernel(device):
                                                          **kw), 10)
                 t_p = time_ms(lambda: AK.axial_attention_reference(
                     *args, dtype=dtype, **kw), 10)
-                line.append(f"bf16 kernel {t_k:.4f} ms plain {t_p:.4f} ms")
+                f, nb = k1_work(shape)
+                line.append(f"bf16 kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+                            f"bound {bound_ms(f, nb)[0]:.4f} ms")
                 ms += calls * t_k
                 plain_ms += calls * t_p
+                flops += calls * f
+                nbytes += calls * nb
             del args, got, ref, ref_args
         print(" | ".join(line), flush=True)
+    b_ms, b_by = bound_ms(flops, nbytes)
     print(f"K1 per forward (12 calls, bf16): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms", flush=True)
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def build_model(dtype, device, state=None):
+def conv_inputs(chs, cout, res, batch, dtype, device, gen):
+    """Random operands of one decode-node stage: parts, raw gates, the two
+    convs' weights and folded-BN affines (outputs of about unit size)."""
+    import torch
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(*s, generator=gen, device=device) * scale
+
+    C = sum(chs)
+    return dict(
+        parts=[rnd(batch, c, res, res).to(dtype) for c in chs],
+        gate_c=torch.sigmoid(rnd(batch, C)),
+        sse_k=rnd(C, scale=C ** -0.5), sse_b=rnd(1)[0],
+        k1=rnd(cout, C, 3, 3, scale=(9 * C) ** -0.5),
+        s1=rnd(cout).abs() + 0.5, b1=rnd(cout, scale=0.1),
+        k2=rnd(cout, cout, 3, 3, scale=(9 * cout) ** -0.5),
+        s2=rnd(cout).abs() + 0.5, b2=rnd(cout, scale=0.1))
+
+
+def library_stage(a, pair, up0=False):
+    """What the logical path runs for the same stage, from PyTorch's own
+    operators: eager scSE gating of the parts (fp32-promoted, as
+    ``SCSEAttention`` leaves them), ``torch.cat``, cuDNN conv in the compute
+    dtype, BN affine, ReLU; with ``pair`` also conv2 and the pooled sum."""
+    import torch
+    import torch.nn.functional as F
+
+    parts = list(a["parts"])
+    dt = parts[0].dtype
+    if up0:
+        parts[0] = F.interpolate(parts[0], scale_factor=(2, 1),
+                                 mode="bilinear", align_corners=False)
+    w = a["sse_k"].to(dt)
+    t, off = None, 0
+    for p in parts:
+        c = p.shape[1]
+        tp = (p * w[off:off + c, None, None]).sum(1, keepdim=True,
+                                                  dtype=torch.float32)
+        t = tp if t is None else t + tp
+        off += c
+    gate_s = torch.sigmoid(t + a["sse_b"])
+    gated, off = [], 0
+    for p in parts:
+        c = p.shape[1]
+        gated.append((p * (a["gate_c"][:, off:off + c, None, None]
+                           + gate_s)).to(dt))
+        off += c
+
+    def conv_bn_relu(x, k, s, b):
+        y = F.conv2d(x, k.to(dt), padding=1)
+        return torch.relu(y * s.to(dt).view(1, -1, 1, 1)
+                          + b.to(dt).view(1, -1, 1, 1))
+
+    y = conv_bn_relu(torch.cat(gated, 1), a["k1"], a["s1"], a["b1"])
+    if not pair:
+        return y
+    y = conv_bn_relu(y, a["k2"], a["s2"], a["b2"])
+    return y, y.sum((2, 3), dtype=torch.float32)
+
+
+def conv_work(chs, cout, res, batch, elem, pair=False, up0=False):
+    """(operations, bytes) of one decode-node kernel call: the conv products
+    (and the gate's logit and product, 3 per input value); parts, weights and
+    gates read once, the output (and the channel sums) written once."""
+    C, px = sum(chs), batch * res * res
+    flops = (2 * 9 * C * cout + 3 * C) * px
+    in_elems = px * C - (px * chs[0] // 2 if up0 else 0)   # half-height part
+    nbytes = elem * (in_elems + 9 * C * cout + px * cout) + 4 * batch * C
+    if pair:
+        flops += 2 * 9 * cout * cout * px
+        nbytes += elem * 9 * cout * cout + 4 * batch * cout
+    return flops, nbytes
+
+
+def rel_err(got, ref):
+    ref = ref.float()
+    return ((got.float() - ref).abs().max().item(), ref.abs().max().item())
+
+
+def phase_conv_kernels(device):
+    """K3, K2 (both forms) and K4 against their plain versions at the
+    main-path node shapes; returns the per-forward sums for the kernels
+    line (bf16, 24 views, the four nodes of ``fast_min_res=256``)."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.ops import conv as CK
+    from eyediseasesegmentation_tpu_torch.ops import decode_pair as PK
+    from eyediseasesegmentation_tpu_torch.ops import scse_conv as SK
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    keys = ("ms", "plain_ms", "library_ms", "flops", "bytes")
+    out = {k: dict.fromkeys(keys, 0.0) | {"max_abs_err": 0.0}
+           for k in ("scse_conv", "decode_pair", "decode_pair_up", "conv3x3")}
+
+    def gate_args(a):
+        return a["parts"], a["gate_c"], a["sse_k"], a["sse_b"]
+
+    def variants(a):
+        """name → (kernel call, plain call, library call, pair, up0)."""
+        g = gate_args(a)
+        c1 = (a["k1"], a["s1"], a["b1"])
+        c2 = (a["k2"], a["s2"], a["b2"])
+        half = dict(a, parts=[a["parts"][0][:, :, ::2].contiguous()]
+                    + a["parts"][1:])
+        gh = gate_args(half)
+        return {
+            "scse_conv": (
+                lambda: SK.scse_conv3x3_bn_relu(*g, *c1),
+                lambda: SK.scse_conv3x3_bn_relu_reference(*g, *c1),
+                lambda: library_stage(a, False), False, False),
+            "decode_pair": (
+                lambda: PK.scse_conv3x3_pair(*g, *c1, *c2),
+                lambda: PK.scse_conv3x3_pair_reference(*g, *c1, *c2),
+                lambda: library_stage(a, True), True, False),
+            "decode_pair_up": (
+                lambda: PK.scse_conv3x3_pair(*gh, *c1, *c2, up_part0=True),
+                lambda: PK.scse_conv3x3_pair_reference(*gh, *c1, *c2,
+                                                       up_part0=True),
+                lambda: library_stage(half, True, up0=True), True, True),
+        }
+
+    def compare(tag, name, got, ref, dname, acc):
+        """Hold a kernel's output(s) against the plain version's."""
+        pairs = [("", got, ref, CONV_TOL[dname])]
+        if isinstance(got, tuple):
+            pairs = [("y2 ", got[0], ref[0], CONV_TOL[dname]),
+                     ("csum ", got[1], ref[1], CSUM_TOL[dname])]
+        text = []
+        for what, g, r, tol in pairs:
+            check(g.shape == r.shape, f"{tag}: {what}shape {tuple(g.shape)}")
+            err, top = rel_err(g, r)
+            text.append(f"{what}max_abs_err={err:.3e} (<= {tol * top:.3e})")
+            check(err <= tol * top, f"{tag}: {what}max_abs_err {err} > "
+                                    f"{tol * top}")
+            if what != "csum ":
+                acc["max_abs_err"] = max(acc["max_abs_err"], err)
+        return f"{dname} " + " ".join(text)
+
+    for node, (chs, cout, res) in NODE_SHAPES.items():
+        for dname, batch in (("float32", 1), ("bfloat16", VIEWS)):
+            dtype = getattr(torch, dname)
+            a = conv_inputs(chs, cout, res, batch, dtype, device, gen)
+            for name, (kern, plain, lib, pair, up0) in variants(a).items():
+                tag = f"{name} {node} {dname}"
+                got = kern()
+                torch.cuda.synchronize()
+                line = [f"{name} {node} {sum(chs)}->{cout}@{res} b={batch}:",
+                        compare(tag, name, got, plain(), dname, out[name])]
+                del got
+                if dtype == torch.bfloat16:
+                    t_k = time_ms(kern, 5, warm=1)
+                    t_p = time_ms(plain, 2, warm=0)
+                    t_l = time_ms(lib, 5, warm=1)
+                    f, nb = conv_work(chs, cout, res, batch, 2, pair, up0)
+                    b_ms, b_by = bound_ms(f, nb)
+                    line.append(f"kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+                                f"library {t_l:.4f} ms bound {b_ms:.4f} ms "
+                                f"({b_by})")
+                    for k, v in zip(keys, (t_k, t_p, t_l, f, nb)):
+                        out[name][k] += v
+                print(" | ".join(line), flush=True)
+                torch.cuda.empty_cache()
+            del a
+            torch.cuda.empty_cache()
+
+    import torch.nn.functional as F
+    for shape, (cin, cout, res) in K4_SHAPES.items():
+        for dname, batch in (("float32", 1), ("bfloat16", VIEWS)):
+            dtype = getattr(torch, dname)
+            a = conv_inputs([cin], cout, res, batch, dtype, device, gen)
+            x, c1 = a["parts"][0], (a["k1"], a["s1"], a["b1"])
+
+            def lib():
+                y = F.conv2d(x, c1[0].to(dtype), padding=1)
+                return torch.relu(y * c1[1].to(dtype).view(1, -1, 1, 1)
+                                  + c1[2].to(dtype).view(1, -1, 1, 1))
+
+            got = CK.conv3x3_bn_relu(x, *c1)
+            torch.cuda.synchronize()
+            ref = CK.conv3x3_bn_relu_reference(x, *c1)
+            line = [f"conv3x3 {shape} {cin}->{cout}@{res} b={batch}:",
+                    compare(f"conv3x3 {shape} {dname}", "conv3x3", got, ref,
+                            dname, out["conv3x3"])]
+            del got, ref
+            if dtype == torch.bfloat16:
+                t_k = time_ms(lambda: CK.conv3x3_bn_relu(x, *c1), 5, warm=1)
+                t_p = time_ms(lambda: CK.conv3x3_bn_relu_reference(x, *c1), 2,
+                              warm=0)
+                t_l = time_ms(lib, 5, warm=1)
+                f = 2 * 9 * cin * cout * batch * res * res
+                nb = 2 * (batch * res * res * (cin + cout) + 9 * cin * cout)
+                b_ms, b_by = bound_ms(f, nb)
+                line.append(f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library "
+                            f"{t_l:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+                for k, v in zip(keys, (t_k, t_p, t_l, f, nb)):
+                    out["conv3x3"][k] += v
+            print(" | ".join(line), flush=True)
+            del a, x, c1
+            torch.cuda.empty_cache()
+
+    for name, acc in out.items():
+        acc["bound_ms"], acc["bound_by"] = bound_ms(acc.pop("flops"),
+                                                    acc.pop("bytes"))
+        print(f"{name} summed over its shapes (bf16, b={VIEWS}): kernel "
+              f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, library "
+              f"{acc['library_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms "
+              f"({acc['bound_by']})", flush=True)
+    return out
+
+
+def kernel_modules():
+    from eyediseasesegmentation_tpu_torch.ops import (axial_attention, conv,
+                                                      decode_pair, scse_conv)
+    return {"axial_attention": axial_attention, "scse_conv": scse_conv,
+            "decode_pair": decode_pair, "conv3x3": conv}
+
+
+def reset_counts():
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts():
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def expected_counts(mode, forwards):
+    """Launches of ``forwards`` forwards with ``fast_min_res=256``: 12 K1
+    always, and the four tail nodes through K3 (v1) or K2 (pair, pair_up)."""
+    return {"axial_attention": 12 * forwards,
+            "scse_conv": 4 * forwards if mode == "v1" else 0,
+            "decode_pair": 4 * forwards if mode in ("pair", "pair_up") else 0,
+            "conv3x3": 0}
+
+
+def build_model(dtype, device, state=None, mode="off"):
     import torch
     from eyediseasesegmentation_tpu_torch import models as zoo
 
-    model = zoo.get_model("unetplusplusstar", MODEL_PARAMS, training=False,
-                          dtype=dtype)
+    params = dict(MODEL_PARAMS, pallas_tail=TAIL_MODES[mode],
+                  fast_min_res=FAST_MIN_RES)
+    model = zoo.get_model("unetplusplusstar", params, training=False,
+                          dtype=dtype, device="cpu")
     if state is None:
         zoo.init_random(model, torch.Generator().manual_seed(SEED))
     else:
@@ -167,48 +472,64 @@ def build_model(dtype, device, state=None):
 
 
 def phase_slice(device):
-    """fp32 1024² forward: GPU (kernel) against CPU (plain path)."""
+    """fp32 1024² forward: GPU (kernels), with pallas_tail off and under each
+    mode, against CPU (plain path)."""
     import torch
-    from eyediseasesegmentation_tpu_torch.ops import axial_attention as AK
 
     cpu_model = build_model(torch.float32, "cpu")
-    gpu_model = build_model(torch.float32, device, cpu_model.state_dict())
+    state = cpu_model.state_dict()
     gen = torch.Generator().manual_seed(SEED + 1)
     x = torch.randn(1, 3, SCALE, SCALE, generator=gen)
-    before = AK.launches
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        got = gpu_model(x.to(device)).cpu()
-        t_gpu = time.perf_counter() - t0
         t0 = time.perf_counter()
         want = cpu_model(x)
         t_cpu = time.perf_counter() - t0
-    check(AK.launches - before == 12,
-          f"slice: {AK.launches - before} K1 launches, expected 12")
-    check(bool(torch.isfinite(got).all()), "slice: non-finite logits")
-    err = (got - want).abs().max().item()
+    del cpu_model
     bound = SLICE_TOL * want.abs().max().item()
-    print(f"slice parity {SCALE}² fp32 base_dim={SCALE // 32}: "
-          f"max_abs_err={err:.3e} (<= {bound:.3e}), max|logit|="
-          f"{want.abs().max().item():.4f}, GPU {t_gpu:.2f} s (first call), "
-          f"CPU {t_cpu:.2f} s", flush=True)
-    check(got.shape == want.shape == (1, 1, SCALE, SCALE),
-          f"slice: shape {tuple(got.shape)}")
-    check(err <= bound, f"slice: max_abs_err {err} > {bound}")
-    del gpu_model, cpu_model
-    torch.cuda.empty_cache()
+    for mode in TAIL_MODES:
+        gpu_model = build_model(torch.float32, device, state, mode)
+        reset_counts()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            got = gpu_model(x.to(device)).cpu()
+            t_gpu = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts == expected_counts(mode, 1),
+              f"slice {mode}: launches {counts}, expected "
+              f"{expected_counts(mode, 1)}")
+        check(bool(torch.isfinite(got).all()), f"slice {mode}: non-finite "
+                                               "logits")
+        err = (got - want).abs().max().item()
+        print(f"slice parity {SCALE}² fp32 base_dim={SCALE // 32} "
+              f"pallas_tail={mode}: max_abs_err={err:.3e} (<= {bound:.3e}), "
+              f"max|logit|={want.abs().max().item():.4f}, launches {counts},"
+              f" GPU {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s",
+              flush=True)
+        check(got.shape == want.shape == (1, 1, SCALE, SCALE),
+              f"slice {mode}: shape {tuple(got.shape)}")
+        check(err <= bound, f"slice {mode}: max_abs_err {err} > {bound}")
+        del gpu_model
+        torch.cuda.empty_cache()
 
 
-def phase_bench(device):
-    """The bench workload: d4 TTA, bf16, full-resolution batch."""
+def bench_predictor(device, mode):
     import torch
     from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
-    from eyediseasesegmentation_tpu_torch.ops import axial_attention as AK
 
     torch.backends.cudnn.benchmark = True
-    model = build_model(torch.bfloat16, device)
+    model = build_model(torch.bfloat16, device, mode=mode)
     cfg = {"dataset_name": "IDRiD", "gray": False, "scale_size": SCALE}
-    predictor = TTAPredictor(model, cfg, tta="d4", ori_hw=FULL_HW)
+    return TTAPredictor(model, cfg, tta="d4", ori_hw=FULL_HW)
+
+
+def phase_bench(device, mode):
+    """The bench workload: d4 TTA, bf16, full-resolution batch. Returns the
+    launch counts of the run."""
+    import torch
+
+    predictor = bench_predictor(device, mode)
+    warmup, iters = ((WARMUP, ITERS) if mode == "off"
+                     else (TAIL_WARMUP, TAIL_ITERS))
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     for batch in range(BATCH, 0, -1):
         try:
@@ -216,45 +537,131 @@ def phase_bench(device):
                                   device=device, dtype=torch.uint8)
                     for _ in range(2)]
             torch.cuda.reset_peak_memory_stats()
-            AK.launches = 0                      # the main path starts here
-            for i in range(WARMUP):
+            reset_counts()                       # the main path starts here
+            for i in range(warmup):
                 probs = predictor.predict(imgs[i % 2])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for i in range(ITERS):
+            for i in range(iters):
                 probs = predictor.predict(imgs[i % 2])
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            launches = AK.launches               # ... and ends here
+            counts = read_counts()               # ... and ends here
             break
         except torch.cuda.OutOfMemoryError:
-            print(f"bench: batch {batch} does not fit", flush=True)
+            print(f"bench {mode}: batch {batch} does not fit", flush=True)
             imgs = probs = None
             torch.cuda.empty_cache()
     else:
-        raise SmokeFailure("bench: no batch fits")
-    forwards = WARMUP + ITERS
-    check(launches == 12 * forwards,
-          f"bench: {launches} K1 launches in {forwards} forwards, expected "
-          f"{12 * forwards}")
+        raise SmokeFailure(f"bench {mode}: no batch fits")
+    forwards = warmup + iters
+    check(counts == expected_counts(mode, forwards),
+          f"bench {mode}: launches {counts} in {forwards} forwards, expected "
+          f"{expected_counts(mode, forwards)}")
     check(tuple(probs.shape) == (batch, *FULL_HW),
-          f"bench: output shape {tuple(probs.shape)}")
-    check(bool(torch.isfinite(probs).all()), "bench: non-finite output")
+          f"bench {mode}: output shape {tuple(probs.shape)}")
+    check(bool(torch.isfinite(probs).all()), f"bench {mode}: non-finite "
+                                             "output")
     check(probs.min().item() >= 0.0 and probs.max().item() <= 1.0,
-          "bench: probabilities outside [0, 1]")
-    ips = batch * ITERS / dt
+          f"bench {mode}: probabilities outside [0, 1]")
+    ips = batch * iters / dt
     peak = torch.cuda.max_memory_allocated()
-    print(f"bench d4 x8 TTA bf16: batch {batch} of {FULL_HW[0]}x{FULL_HW[1]}"
-          f" at {SCALE}², {ITERS} iters after {WARMUP} warm-ups: "
-          f"{ips:.4f} images/sec ({1e3 * dt / ITERS:.2f} ms per batch), "
-          f"peak memory {peak / 2**30:.3f} GiB, K1 launches {launches} "
-          f"({launches // forwards} per forward)", flush=True)
-    return launches
+    used = {k: v for k, v in counts.items() if v}
+    print(f"bench d4 x8 TTA bf16 pallas_tail={mode}: batch {batch} of "
+          f"{FULL_HW[0]}x{FULL_HW[1]} at {SCALE}², {iters} iters after "
+          f"{warmup} warm-ups: {ips:.4f} images/sec "
+          f"({1e3 * dt / iters:.2f} ms per batch), peak memory "
+          f"{peak / 2**30:.3f} GiB, launches {used} in {forwards} forwards",
+          flush=True)
+    del predictor, imgs, probs
+    torch.cuda.empty_cache()
+    return counts
 
 
-def main() -> int:
+def phase_conv3x3_path(device):
+    """K4 has no caller in any model: its path is its public function,
+    driven here at the decode node's conv2 shape (64 → 64 at 512², 24
+    views, bf16). Returns the launch count of the call."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.ops.conv import conv3x3_bn_relu
+
+    cin, cout, res = K4_SHAPES["conv2"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    a = conv_inputs([cin], cout, res, VIEWS, torch.bfloat16, device, gen)
+    reset_counts()
+    y = conv3x3_bn_relu(a["parts"][0], a["k1"], a["s1"], a["b1"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(tuple(y.shape) == (VIEWS, cout, res, res) and
+          y.dtype == torch.bfloat16, f"conv3x3 path: {tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()) and y.min().item() >= 0.0,
+          "conv3x3 path: non-finite or negative output after ReLU")
+    check(counts["conv3x3"] == 1, f"conv3x3 path: launches {counts}")
+    print(f"conv3x3 path: conv3x3_bn_relu {cin}->{cout}@{res} b={VIEWS} bf16,"
+          f" launches {counts['conv3x3']}", flush=True)
+    return counts["conv3x3"]
+
+
+def phase_profile(device, modes):
+    """Device time by op of one ``predict`` of the bench workload, after two
+    warm-ups, for each mode."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    imgs = torch.randint(0, 256, (BATCH, *FULL_HW, 3), generator=gen,
+                         device=device, dtype=torch.uint8)
+    for mode in modes:
+        predictor = bench_predictor(device, mode)
+        for _ in range(2):
+            predictor.predict(imgs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            predictor.predict(imgs)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        # Device time by op: the self device time of each aten op (the
+        # kernels it launched itself), and the port's own kernels, which no
+        # aten op launches. Kernel records of aten ops are skipped here, or
+        # their time would count twice; they give the busy time below.
+        from torch.autograd import DeviceType
+        rows, busy = [], 0.0
+        for evt in prof.key_averages():
+            dev = getattr(evt, "self_device_time_total",
+                          getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+            if dev <= 0 or evt.key == "Command Buffer Full":
+                continue
+            if evt.device_type == DeviceType.CUDA:
+                busy += dev
+                if "dconv::" not in evt.key and "axial_attention" not in evt.key:
+                    continue
+            rows.append((dev, evt.count, evt.key))
+        rows.sort(reverse=True)
+        total = sum(r[0] for r in rows)
+        print(f"profile pallas_tail={mode}: wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms (kernel and copy records, one stream), idle "
+              f"{100 * (1 - busy / wall):.1f} %; {total:.1f} ms attributed "
+              f"to ops", flush=True)
+        for ms, count, key in rows[:16]:
+            print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f} %  x{count:<5d} "
+                  f"{key[:90]}", flush=True)
+        del predictor
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", default=None, metavar="MODES",
+                        help="comma-separated pallas_tail modes "
+                             f"({', '.join(TAIL_MODES)}): print the device "
+                             "time by op of one predict and stop")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -273,33 +680,58 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _build.load("axial_attention")
-    print(f"build: axial_attention in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_info['axial_attention']['seconds']:.2f} s)",
+    _build.load_all(list(SOURCES))
+    print(f"build: {len(SOURCES)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s, one nvcc each, side by side",
           flush=True)
-    for ln in _build.build_info["axial_attention"]["log"].splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-            print(f"  ptxas: {ln.strip()}", flush=True)
+    for name in SOURCES:
+        info = _build.build_info[name]
+        print(f"build: {name} nvcc {info['seconds']:.2f} s", flush=True)
+        for ln in info["log"].splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                print(f"  ptxas: {ln.strip()}", flush=True)
 
     try:
+        if args.profile is not None:
+            modes = args.profile.split(",")
+            check(all(m in TAIL_MODES for m in modes),
+                  f"--profile: unknown mode in {modes}")
+            phase_profile(device, modes)
+            print(card, flush=True)
+            return 0
         k1 = phase_kernel(device)
+        conv = phase_conv_kernels(device)
         phase_slice(device)
-        launches = phase_bench(device)
+        runs = {mode: phase_bench(device, mode) for mode in TAIL_MODES}
+        k4_launches = phase_conv3x3_path(device)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
+    def entry(name, launches, stats, **extra):
+        source, replaces = SOURCES[name]
+        return {"name": name, "route": "cuda",
+                "source": f"eyediseasesegmentation_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                **{k: stats[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}, **extra}
+
+    up = conv["decode_pair_up"]
+    kernels = [
+        entry("axial_attention", runs["off"]["axial_attention"], k1),
+        entry("scse_conv", runs["v1"]["scse_conv"], conv["scse_conv"]),
+        entry("decode_pair", runs["pair"]["decode_pair"], conv["decode_pair"],
+              up_part0={"launches": runs["pair_up"]["decode_pair"],
+                        **{k: up[k] for k in up}}),
+        entry("conv3x3", k4_launches, conv["conv3x3"]),
+    ]
+    check(all(k["launches"] > 0 and k["up_part0"]["launches"] > 0
+              if "up_part0" in k else k["launches"] > 0 for k in kernels),
+          f"a kernel of the path was never launched: "
+          f"{[(k['name'], k['launches']) for k in kernels]}")
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "axial_attention",
-        "route": "cuda",
-        "source": "eyediseasesegmentation_tpu_torch/csrc/axial_attention.cu",
-        "replaces": "eyediseasesegmentation_tpu/ops/axial_attention.py:90",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

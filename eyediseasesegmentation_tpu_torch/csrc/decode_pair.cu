@@ -1,0 +1,218 @@
+// The decode node's two convolutions in one kernel for Hopper (sm_90a), NCHW.
+//
+// Replaces: eyediseasesegmentation_tpu/ops/pallas_decode_pair.py, `_kernel`
+// (the Pallas TPU kernel behind `scse_conv3x3_pair`):
+//   y1 = relu?(scale1 * conv3x3(cat(parts) * T(scse gate)) + bias1)
+//   y2 = relu?(scale2 * conv3x3(y1) + bias2)
+//   csum[b, c] = sum over pixels of y2[b, c] in fp32, before its rounding
+// y1 never reaches device memory: a block computes it, rounded to the
+// compute type T, on its 5 x 32 output tile plus one ring, from an input
+// tile with two rings, keeps it channels-last in shared memory and runs the
+// second convolution from there. The ring is recomputed by neighbouring
+// blocks (1.5x the first stage's products). y1 outside the image is zero,
+// as SAME padding of the second convolution requires, not relu(bias1).
+// With up0, part 0 arrives at half height and its H-direction bilinear x2
+// is taken while the tile is filled (decode_conv.cuh, `PartsFiller`).
+//
+// csum: every block writes the sums of its tile to partial[b][tile][c] in a
+// fixed order, and a second small kernel adds the tiles of an image in tile
+// order, so the result does not change from run to run (no float atomics).
+//
+// The GEMM, and what bounds it on this card, is described in decode_conv.cuh.
+
+#include "decode_conv.cuh"
+
+namespace dconv {
+
+struct PairParams {
+  Parts parts;
+  const float* gate_c;  // (B, C), already sigmoided
+  const float* gmap;    // (B, H, W) spatial gate, from gate_map_kernel
+  const void* w1;       // (9, C, coutP) in T
+  const float* scale1;  // (cout,)
+  const float* bias1;
+  const void* w2;       // (9, coutP, coutP) in T
+  const float* scale2;
+  const float* bias2;
+  void* out;            // (B, cout, H, W)
+  float* partial;       // (B, ntx * nty, cout)
+  float* csum;          // (B, cout)
+  int B, H, W, C, cout, coutP, relu, gated, ntx, nty;
+};
+
+using GeoPair = Geo<5, 2>;
+
+template <typename T, bool UP0>
+__global__ void __launch_bounds__(kThreads)
+    decode_pair_kernel(const PairParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using G = GeoPair;
+  using S = Smem<T, G>;
+  float* gs = reinterpret_cast<float*>(smem + S::gs);
+  T* tile = reinterpret_cast<T*>(smem + S::tile);
+  T* Ws = reinterpret_cast<T*>(smem + S::ws);
+  float* Cs = reinterpret_cast<float*>(smem + S::tile);
+  T* y1 = reinterpret_cast<T*>(smem + S::y1);
+  const BlockPos bp = block_pos<G::TH>(p.ntx, p.nty);
+  const int H = p.H, W = p.W, C = p.C, cout = p.cout, coutP = p.coutP;
+  const bool relu = p.relu != 0;
+
+  // stage 1: y1 on the tile plus one ring, positions (ty, tx) in
+  // [1, TH + 2] x [1, kTW + 2] of the haloed tile
+  constexpr int q1 = G::PW + 1;
+  constexpr int nmt1 = ((G::TH + 1) * G::PW + kTW + 2 + 15) / 16;
+  static_assert(nmt1 * 16 <= kM, "stage 1 does not fit the block");
+  if (p.gated) load_gates<G>(p.gmap, bp.b, bp.y0, bp.x0, H, W, gs);
+  const PartsFiller<T, G, UP0> fill{
+      p.parts,  bp.b, bp.y0, bp.x0,
+      H,        W,    C,     p.gated != 0,
+      p.gate_c, gs,   reinterpret_cast<ChunkTable*>(smem + S::tab),
+      tile,     S::lda};
+  conv_accumulate<T, G::PW>(fill, tile, S::lda, false, C,
+                            static_cast<const T*>(p.w1), coutP, 0, q1, nmt1,
+                            Ws, Cs);
+  for (int e = threadIdx.x; e < coutP * kM; e += kThreads) {
+    const int n = e / kM, m = e % kM;
+    const int q = q1 + m;
+    const int ty = q / G::PW, tx = q % G::PW;
+    const int y = bp.y0 - G::HALO + ty, x = bp.x0 - G::HALO + tx;
+    float v = 0.f;
+    if (ty >= 1 && ty < G::PH - 1 && tx >= 1 && tx < G::PW - 1 && y >= 0 &&
+        y < H && x >= 0 && x < W && n < cout) {
+      v = Cs[n * kLdc + m] * p.scale1[n] + p.bias1[n];
+      if (relu) v = fmaxf(v, 0.f);
+    }
+    y1[q * S::ld1 + n] = from_f<T>(v);
+  }
+
+  // stage 2: y2 on the tile, positions [2, TH + 1] x [2, kTW + 1]
+  constexpr int q2 = 2 * G::PW + 2;
+  constexpr int nmt2 = ((G::TH - 1) * G::PW + kTW + 15) / 16;
+  conv_accumulate<T, G::PW>(NoFiller{}, y1, S::ld1, true, coutP,
+                            static_cast<const T*>(p.w2), coutP, 0, q2, nmt2,
+                            Ws, Cs);
+  write_map<T, G, 2, true>(Cs, q2, coutP, 0, cout, p.scale2, p.bias2, relu,
+                           static_cast<T*>(p.out), bp.b, bp.y0, bp.x0, H, W);
+  __syncthreads();
+  const int c = static_cast<int>(threadIdx.x);
+  if (c < cout) {
+    const float* row = Cs + c * kLdc;
+    float s = 0.f;
+    for (int m = 0; m < nmt2 * 16; ++m) s += row[m];
+    p.partial[(static_cast<size_t>(bp.b) * p.ntx * p.nty + bp.tile) * cout + c] = s;
+  }
+}
+
+// csum[b, c] = sum of partial[b, tile, c] over the tiles, in tile order.
+__global__ void csum_reduce_kernel(const PairParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.B * p.cout) return;
+  const int b = i / p.cout, c = i % p.cout;
+  const int ntiles = p.ntx * p.nty;
+  const float* src = p.partial + static_cast<size_t>(b) * ntiles * p.cout + c;
+  float s = 0.f;
+  for (int t = 0; t < ntiles; ++t) s += src[static_cast<size_t>(t) * p.cout];
+  p.csum[i] = s;
+}
+
+template <typename T, bool UP0>
+cudaError_t launch_pair(const PairParams& p, const GateMapParams& g,
+                        cudaStream_t stream) {
+  const int smem = static_cast<int>(Smem<T, GeoPair>::pair);
+  void (*kernel)(const PairParams) = decode_pair_kernel<T, UP0>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = static_cast<long long>(p.B) * p.ntx * p.nty;
+  if (grid > 2147483647LL) return cudaErrorInvalidValue;
+  if (p.gated) {
+    err = launch_gate_map<T>(g, stream);
+    if (err != cudaSuccess) return err;
+  }
+  DCONV_LAUNCH(kernel, static_cast<unsigned>(grid), smem, stream, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const unsigned rgrid = static_cast<unsigned>((p.B * p.cout + kThreads - 1) /
+                                               kThreads);
+  DCONV_LAUNCH(csum_reduce_kernel, rgrid, 0, stream, p);
+  return cudaGetLastError();
+}
+
+}  // namespace dconv
+
+// Tiles an (H, W) map is cut into, so that the caller can size `partial`.
+extern "C" int decode_pair_tiles(int H, int W) {
+  return ((W + dconv::kTW - 1) / dconv::kTW) *
+         ((H + dconv::GeoPair::TH - 1) / dconv::GeoPair::TH);
+}
+
+// dtype: 0 = fp32, 1 = bf16. parts/channels: the first nparts entries are
+// the parts of the concat, (B, channels[i], H, W), or (B, channels[0], H/2,
+// W) for part 0 under up0. w1 is (9, C, coutP) and w2 (9, coutP, coutP) in
+// the compute type, zero-padded, coutP a multiple of 16 and at most 64.
+// partial is (B, decode_pair_tiles(H, W), cout) and gmap (B, H, W) fp32
+// scratch (gmap unused when gated is 0). Returns the cudaError_t of the
+// launches.
+extern "C" int decode_pair_fwd(int dtype, int nparts, const void* const* parts,
+                               const int* channels, int up0,
+                               const void* gate_c, const void* wsse,
+                               const void* bsse, void* gmap, const void* w1,
+                               const void* scale1, const void* bias1,
+                               const void* w2, const void* scale2,
+                               const void* bias2, void* out, void* partial,
+                               void* csum, int B, int H, int W, int cout,
+                               int coutP, int relu, int gated, void* stream) {
+  if (nparts < 1 || nparts > dconv::kMaxParts || B < 1 || H < 1 || W < 1 ||
+      cout < 1 || coutP < cout || coutP % 16 != 0 || coutP > dconv::kNC ||
+      (up0 && (H & 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dconv::PairParams p;
+  p.parts.n = nparts;
+  p.parts.up0 = up0;
+  p.parts.off[0] = 0;
+  for (int i = 0; i < dconv::kMaxParts; ++i) {
+    p.parts.ptr[i] = i < nparts ? parts[i] : nullptr;
+    p.parts.ch[i] = i < nparts ? channels[i] : 0;
+    p.parts.off[i + 1] = p.parts.off[i] + p.parts.ch[i];
+  }
+  p.gate_c = static_cast<const float*>(gate_c);
+  p.gmap = static_cast<const float*>(gmap);
+  p.w1 = w1;
+  p.scale1 = static_cast<const float*>(scale1);
+  p.bias1 = static_cast<const float*>(bias1);
+  p.w2 = w2;
+  p.scale2 = static_cast<const float*>(scale2);
+  p.bias2 = static_cast<const float*>(bias2);
+  p.out = out;
+  p.partial = static_cast<float*>(partial);
+  p.csum = static_cast<float*>(csum);
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.C = p.parts.off[nparts];
+  p.cout = cout;
+  p.coutP = coutP;
+  p.relu = relu;
+  p.gated = gated;
+  p.ntx = (W + dconv::kTW - 1) / dconv::kTW;
+  p.nty = (H + dconv::GeoPair::TH - 1) / dconv::GeoPair::TH;
+  dconv::GateMapParams g;
+  g.parts = p.parts;
+  g.wsse = static_cast<const float*>(wsse);
+  g.bsse = static_cast<const float*>(bsse);
+  g.gmap = static_cast<float*>(gmap);
+  g.B = B;
+  g.H = H;
+  g.W = W;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1) {
+    err = up0 ? dconv::launch_pair<dconv::bf16, true>(p, g, s)
+              : dconv::launch_pair<dconv::bf16, false>(p, g, s);
+  } else {
+    err = up0 ? dconv::launch_pair<float, true>(p, g, s)
+              : dconv::launch_pair<float, false>(p, g, s);
+  }
+  return static_cast<int>(err);
+}

@@ -1,0 +1,142 @@
+// scSE-gated 3x3 SAME convolution over a virtual channel concat + affine +
+// optional ReLU for Hopper (sm_90a), NCHW.
+//
+// Replaces: eyediseasesegmentation_tpu/ops/pallas_scse_conv.py, `_kernel`
+// (the Pallas TPU kernel behind `scse_conv3x3_bn_relu`), the decode node's
+// attention1 + conv1 + BN + ReLU stage:
+//   t = sum_c fp32(x_c) w_sse[c];  gate = gate_c[b, c] + sigmoid(t + b_sse)
+//   y = relu?(scale * conv3x3(x * T(gate)) + bias)
+// with x the concat of the parts, which exists only in shared memory, the
+// gating product in the compute type T and fp32 accumulation.
+//
+// The sSE logit needs every channel of a pixel before the first product, and
+// a haloed tile of all channels does not fit in shared memory, so the parts
+// are read twice: by a first small kernel that writes the spatial gate of
+// the whole map (decode_conv.cuh, gate_map_kernel), and by the convolution,
+// chunk by chunk. See decode_conv.cuh for the GEMM and for what bounds it on
+// this card.
+
+#include "decode_conv.cuh"
+
+namespace dconv {
+
+struct ScseConvParams {
+  Parts parts;
+  const float* gate_c;  // (B, C), already sigmoided
+  const float* gmap;    // (B, H, W) spatial gate, from gate_map_kernel
+  const void* w;        // (9, C, coutP) in T
+  const float* scale;   // (cout,)
+  const float* bias;    // (cout,)
+  void* out;            // (B, cout, H, W)
+  int B, H, W, C, cout, coutP, relu, gated, ntx, nty;
+};
+
+using GeoOne = Geo<7, 1>;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<T>)
+    scse_conv_kernel(const ScseConvParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using G = GeoOne;
+  using S = Smem<T, G>;
+  float* gs = reinterpret_cast<float*>(smem + S::gs);
+  T* tile = reinterpret_cast<T*>(smem + S::tile);
+  T* Ws = reinterpret_cast<T*>(smem + S::ws);
+  float* Cs = reinterpret_cast<float*>(smem + S::tile);
+  const BlockPos bp = block_pos<G::TH>(p.ntx, p.nty);
+  const int H = p.H, W = p.W, C = p.C;
+  constexpr int q_begin = G::PW + 1;
+  constexpr int nmt = ((G::TH - 1) * G::PW + kTW + 15) / 16;
+
+  if (p.gated) load_gates<G>(p.gmap, bp.b, bp.y0, bp.x0, H, W, gs);
+  const PartsFiller<T, G, false> fill{
+      p.parts,  bp.b, bp.y0, bp.x0,
+      H,        W,    C,     p.gated != 0,
+      p.gate_c, gs,   reinterpret_cast<ChunkTable*>(smem + S::tab),
+      tile,     S::lda};
+  for (int n0 = 0; n0 < p.coutP; n0 += kNC) {
+    conv_accumulate<T, G::PW>(fill, tile, S::lda, false, C,
+                              static_cast<const T*>(p.w), p.coutP, n0, q_begin,
+                              nmt, Ws, Cs);
+    const int ncols = p.coutP - n0 < kNC ? p.coutP - n0 : kNC;
+    write_map<T, G, 1, false>(Cs, q_begin, ncols, n0, p.cout, p.scale, p.bias,
+                              p.relu != 0, static_cast<T*>(p.out), bp.b, bp.y0,
+                              bp.x0, H, W);
+  }
+}
+
+template <typename T>
+cudaError_t launch_scse_conv(const ScseConvParams& p, const GateMapParams& g,
+                             cudaStream_t stream) {
+  const int smem = static_cast<int>(Smem<T, GeoOne>::one);
+  cudaError_t err = cudaFuncSetAttribute(
+      scse_conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = static_cast<long long>(p.B) * p.ntx * p.nty;
+  if (grid > 2147483647LL) return cudaErrorInvalidValue;
+  if (p.gated) {
+    err = launch_gate_map<T>(g, stream);
+    if (err != cudaSuccess) return err;
+  }
+  DCONV_LAUNCH(scse_conv_kernel<T>, static_cast<unsigned>(grid), smem, stream,
+               p);
+  return cudaGetLastError();
+}
+
+}  // namespace dconv
+
+// dtype: 0 = fp32, 1 = bf16. parts/channels: the first nparts entries are
+// the (B, channels[i], H, W) parts of the concat. gmap is (B, H, W) fp32
+// scratch for the spatial gate (unused when gated is 0). w is (9, C, coutP)
+// in the compute type, coutP a multiple of 16. Returns the cudaError_t of
+// the launches.
+extern "C" int scse_conv3x3_fwd(int dtype, int nparts, const void* const* parts,
+                                const int* channels, const void* gate_c,
+                                const void* wsse, const void* bsse,
+                                void* gmap, const void* w, const void* scale,
+                                const void* bias, void* out, int B, int H,
+                                int W, int cout, int coutP, int relu,
+                                int gated, void* stream) {
+  if (nparts < 1 || nparts > dconv::kMaxParts || B < 1 || H < 1 || W < 1 ||
+      cout < 1 || coutP < cout || coutP % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dconv::ScseConvParams p;
+  p.parts.n = nparts;
+  p.parts.up0 = 0;
+  p.parts.off[0] = 0;
+  for (int i = 0; i < dconv::kMaxParts; ++i) {
+    p.parts.ptr[i] = i < nparts ? parts[i] : nullptr;
+    p.parts.ch[i] = i < nparts ? channels[i] : 0;
+    p.parts.off[i + 1] = p.parts.off[i] + p.parts.ch[i];
+  }
+  p.gate_c = static_cast<const float*>(gate_c);
+  p.gmap = static_cast<const float*>(gmap);
+  p.w = w;
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.B = B;
+  p.H = H;
+  p.W = W;
+  p.C = p.parts.off[nparts];
+  p.cout = cout;
+  p.coutP = coutP;
+  p.relu = relu;
+  p.gated = gated;
+  p.ntx = (W + dconv::kTW - 1) / dconv::kTW;
+  p.nty = (H + dconv::GeoOne::TH - 1) / dconv::GeoOne::TH;
+  dconv::GateMapParams g;
+  g.parts = p.parts;
+  g.wsse = static_cast<const float*>(wsse);
+  g.bsse = static_cast<const float*>(bsse);
+  g.gmap = static_cast<float*>(gmap);
+  g.B = B;
+  g.H = H;
+  g.W = W;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dtype == 1
+                              ? dconv::launch_scse_conv<dconv::bf16>(p, g, s)
+                              : dconv::launch_scse_conv<float>(p, g, s);
+  return static_cast<int>(err);
+}

@@ -27,15 +27,13 @@ def _factory(cls) -> Callable[..., Any]:
     fields = set(inspect.signature(cls).parameters)
 
     def make(**params):
-        if params.get("pallas_tail"):
-            raise NotImplementedError(
-                "pallas_tail needs the decode-node kernels K3/K2, which are "
-                "not ported yet (ROADMAP.md)")
         # keys that are not constructor fields are dropped, as in the JAX
         # registry: the reference's torch-only keys (encoder_weights,
         # pretrained, encoder_depth, ...), the JAX layout knobs (fast_inference,
         # keep_packed, remat, ...), exact rewrites of the logical path
-        # (tests/test_packed_tail.py), and drop_block_prob (DropBlock is the
+        # (tests/test_packed_tail.py; pallas_tail and fast_min_res ARE
+        # fields: they select the fused decode-node kernels), and
+        # drop_block_prob (DropBlock is the
         # identity at eval), so a config.json round-trips
         kwargs = {}
         for k, v in params.items():
@@ -103,14 +101,25 @@ def init_random(model: torch.nn.Module,
 
 
 def get_model(model_name: str, params: Optional[Dict[str, Any]] = None,
-              training: bool = True, dtype: torch.dtype = torch.float32):
-    """Registry factory with the reference's inference-time demotions."""
+              training: bool = True, dtype: torch.dtype = torch.float32,
+              device=None):
+    """Registry factory with the reference's inference-time demotions.
+
+    The model is built on ``device``. ``None`` means the GPU (``"cuda"``)
+    and raises when there is none: the port runs on the CPU only for a
+    caller that asks for it with ``device="cpu"``."""
     try:
         model_fn = MODEL_REGISTRY[model_name]
     except KeyError:
         raise KeyError(
             f"Model '{model_name}' is not ported yet (ported: {list_models()});"
             " see ROADMAP.md for the rest of the zoo") from None
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "get_model: no CUDA device is present; pass device='cpu' to "
+                "build the model on the CPU")
+        device = "cuda"
     params = dict(params or {})
     if not training:
         params.pop("clfhead", None)
@@ -119,7 +128,7 @@ def get_model(model_name: str, params: Optional[Dict[str, Any]] = None,
         params["encoder_weights"] = None
         params["deep_supervision"] = False
     params["dtype"] = dtype
-    return model_fn(**params)
+    return model_fn(**params).to(device)
 
 
 # per-dataset channel statistics (reference archs/__init__.py:61-89)

@@ -85,6 +85,12 @@ class ConvBNReLU(EvalModule):
         y = conv2d(x, self.conv, self.dtype, padding=1)
         return torch.relu(self.bn(y))
 
+    def folded_params(self):
+        """(conv weight OIHW, folded BN scale, folded BN bias), all fp32,
+        for a fused consumer (the JAX module's ``mode="pallas_params"``)."""
+        scale, bias = self.bn.folded()
+        return self.conv.weight, scale, bias
+
 
 class SEBlock(EvalModule):
     """Squeeze-excite on pooled means (two Dense layers, reduction 16)."""
@@ -122,12 +128,36 @@ class SCSEAttention(EvalModule):
         self.cse_expand = nn.Conv2d(mid, channels, 1)
         self.sse = nn.Conv2d(channels, 1, 1)
 
-    def forward(self, x: Parts):
+    def _cse_logits(self, parts: List[torch.Tensor],
+                    mean_override: Optional[torch.Tensor]) -> torch.Tensor:
+        """Channel-SE logits (B, ΣC, 1, 1) from the pooled means, or from
+        ``mean_override``: (B, ΣC) fp32 means that a fused producer already
+        summed, cast to the input's dtype."""
+        dt = self.dtype
+        if mean_override is not None:
+            s = mean_override[:, :, None, None].to(parts[0].dtype)
+        else:
+            s = torch.cat([p.mean((2, 3), keepdim=True) for p in parts], 1)
+        s = torch.relu(conv2d(s, self.cse_reduce, dt))
+        return conv2d(s, self.cse_expand, dt)
+
+    def raw_gates(self, parts: Parts, up_part0: bool = True):
+        """(gate_c (B, ΣC) fp32 already sigmoided, sse_kernel (ΣC,) fp32,
+        sse_bias scalar fp32) for a fused consumer that computes the spatial
+        gate itself. The sigmoid runs in the compute dtype and is then
+        upcast. With ``up_part0`` part 0 is the map BEFORE its ×2 upsample:
+        its pooled mean equals the upsampled map's (bilinear weights sum to
+        one per source pixel pair), so the big upsampled map is never read
+        here; the flag records that contract and changes no arithmetic."""
+        del up_part0
+        s = self._cse_logits(output_parts(parts), None)
+        gate_c = torch.sigmoid(s).to(torch.float32).flatten(1)
+        return gate_c, self.sse.weight[0, :, 0, 0], self.sse.bias[0]
+
+    def forward(self, x: Parts, mean_override: Optional[torch.Tensor] = None):
         dt = self.dtype
         parts = output_parts(x)
-        s = torch.cat([p.mean((2, 3), keepdim=True) for p in parts], 1)
-        s = torch.relu(conv2d(s, self.cse_reduce, dt))
-        s = conv2d(s, self.cse_expand, dt)
+        s = self._cse_logits(parts, mean_override)
         w = self.sse.weight[0, :, 0, 0].to(dt)
         t, off = None, 0
         for p in parts:
@@ -190,6 +220,13 @@ class ClassificationHead(EvalModule):
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Bilinear ×2 at half-pixel centres with edge clamp, NCHW."""
     return F.interpolate(x, scale_factor=2, mode="bilinear",
+                         align_corners=False)
+
+
+def upsample2x_w(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear ×2 along W only (the W half of :func:`upsample2x`: same
+    half-pixel centres and edge clamp), NCHW → (N, C, H, 2W)."""
+    return F.interpolate(x, scale_factor=(1, 2), mode="bilinear",
                          align_corners=False)
 
 

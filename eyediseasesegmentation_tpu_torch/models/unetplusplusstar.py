@@ -7,7 +7,7 @@ deep-supervision and classification heads.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -19,13 +19,17 @@ from .modules.layers import ClassificationHead, EvalModule, SegmentationHead
 class UnetPlusPlusStar(EvalModule):
     """NCHW input → fp32 logits (N, classes, H, W); with deep supervision
     (mask, [ds3, ds2, ds1]); with ``clf_head`` the classification logits are
-    appended to the output."""
+    appended to the output. ``pallas_tail`` (``True``/``"v1"``, ``"pair"``,
+    ``"pair_up"``) routes the decoder's scSE tail nodes at output height
+    ≥ ``fast_min_res`` through the fused decode-node kernels
+    (``models/decoders.py``)."""
 
     def __init__(self, encoder_name: str = "BoTSER50_Axial_Imagenet_3",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  decoder_attention_type: Optional[str] = None,
                  base_dim: int = 32, classes: int = 1,
                  deep_supervision: bool = False, clf_head: bool = False,
+                 pallas_tail: Any = None, fast_min_res: int = 512,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -38,7 +42,8 @@ class UnetPlusPlusStar(EvalModule):
         self.decoder = UnetPlusPlusDecoder(
             enc_channels, decoder_channels, base_dim=base_dim,
             attention_type=decoder_attention_type,
-            deep_supervision=deep_supervision, dtype=dtype)
+            deep_supervision=deep_supervision, pallas_tail=pallas_tail,
+            fast_min_res=fast_min_res, dtype=dtype)
         self.segmentation_head = SegmentationHead(
             decoder_channels[-1], classes, dtype=dtype)
         if deep_supervision:

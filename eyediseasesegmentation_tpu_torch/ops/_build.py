@@ -2,8 +2,10 @@
 
 Each source in ``csrc/`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (sm_90a) into ``build/kernels/`` at the repository root,
-on first use in a process. The library's name carries a hash of the source and
-flags, so an edited source is rebuilt and a built one is reused.
+on first use in a process. The library's name carries a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a built one is reused. :func:`load_all` starts one ``nvcc`` per
+source at the same time.
 """
 
 from __future__ import annotations
@@ -23,11 +25,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 # library name -> (source file, {C function: argtypes}); every function
-# returns the cudaError_t of its launch
+# returns the cudaError_t of its launch (decode_pair_tiles: a tile count)
 _KERNELS = {
     "axial_attention": ("axial_attention.cu", {
         "axial_attention_fwd": [_I] + [_P] * 19 + [_I] * 12 + [_P],
+    }),
+    "conv3x3": ("conv3x3.cu", {
+        "conv3x3_fwd": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    }),
+    "scse_conv": ("scse_conv.cu", {
+        "scse_conv3x3_fwd": [_I, _I, _PP, _IP] + [_P] * 8 + [_I] * 7 + [_P],
+    }),
+    "decode_pair": ("decode_pair.cu", {
+        "decode_pair_tiles": [_I, _I],
+        "decode_pair_fwd": ([_I, _I, _PP, _IP, _I] + [_P] * 13 + [_I] * 7
+                            + [_P]),
     }),
 }
 
@@ -47,13 +61,23 @@ def _nvcc() -> str:
     return found
 
 
+def load_all(names=None) -> None:
+    """Build and load several libraries, one ``nvcc`` per source, all
+    started together (the builds are independent processes)."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = list(_KERNELS) if names is None else list(names)
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load, names))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library ``name``."""
     if name in _loaded:
         return _loaded[name]
     source, functions = _KERNELS[name]
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     seconds, log = 0.0, ""

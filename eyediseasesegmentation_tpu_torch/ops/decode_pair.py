@@ -1,0 +1,140 @@
+"""The decode node's two convs as one kernel: wrapper and plain version.
+
+Counterpart of ``eyediseasesegmentation_tpu/ops/pallas_decode_pair.py``:
+
+    y1 = relu?(scale1 · conv3×3(cat(parts) · scse_gate) + bias1)
+    y2 = relu?(scale2 · conv3×3(y1) + bias2)
+    csum[b, c] = Σ_hw y2[b, c]                    (fp32, before y2's rounding)
+
+``y1`` is rounded to the parts' dtype between the convs and never reaches
+device memory on the kernel route; the second conv pads it with zeros. With
+``up_part0`` part 0 is the W-upsampled half-height map (``upsample2x_w``)
+and the H direction of the bilinear ×2 is taken inside: even rows
+0.25·r[m−1] + 0.75·r[m], odd rows 0.75·r[m] + 0.25·r[m+1], clamped at the
+edges, rounded to the dtype. Maps are NCHW, weights OIHW; names and argument
+order follow the JAX function. CPU parts take
+:func:`scse_conv3x3_pair_reference`; CUDA parts launch the kernel in
+``csrc/decode_pair.cu`` or raise. The kernel sums ``csum`` in a fixed order
+(per-tile partial sums, then the tiles in order), so it is the same from run
+to run; against the plain version it differs by fp32 reassociation (1e-4 of
+its largest value is the tolerance of the GPU checks).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .scse_conv import (_DTYPE_CODES, _F32, affine, check_parts, conv_affine,
+                        gate_map_scratch, gate_operands, gated_concat,
+                        on_cuda, padded16, part_arrays, tap_major)
+
+# Where the kernel's wrapper launches it, and nowhere else.
+launches = 0
+
+_MAX_COUT = 64      # the kernel keeps all of y1's channels in shared memory
+
+
+def upsample2x_h(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear ×2 along H only (half-pixel centres, edge clamp), computed in
+    fp32 and rounded to ``x.dtype``."""
+    y = F.interpolate(x.to(_F32), scale_factor=(2, 1), mode="bilinear",
+                      align_corners=False)
+    return y.to(x.dtype)
+
+
+def scse_conv3x3_pair_reference(parts, gate_c, sse_kernel, sse_bias, k1,
+                                scale1, bias1, k2, scale2, bias2,
+                                relu: bool = True, gated: bool = True,
+                                up_part0: bool = False
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: cat + gate + two ``F.conv2d`` stages."""
+    parts = list(parts)
+    if up_part0:
+        parts = [upsample2x_h(parts[0])] + parts[1:]
+    x = gated_concat(parts, gate_c, sse_kernel, sse_bias, gated)
+    y1 = conv_affine(x, k1, scale1, bias1, relu).to(x.dtype)
+    y2 = conv_affine(y1, k2, scale2, bias2, relu)
+    return y2.to(x.dtype), y2.sum((2, 3))
+
+
+def _run(lib, stream, parts, gate_c, sse_kernel, sse_bias, k1, scale1, bias1,
+         k2, scale2, bias2, relu, gated, up_part0):
+    """Marshal one call of ``decode_pair_fwd`` from ``lib``; returns
+    (cudaError_t, y2, csum)."""
+    parts, B, H, W, channels = check_parts("scse_conv3x3_pair", parts,
+                                           up_part0)
+    dtype, dev = parts[0].dtype, parts[0].device
+    C, cout = sum(channels), int(k1.shape[0])
+    if k1.shape[1] != C or tuple(k2.shape[:2]) != (cout, cout):
+        raise ValueError(f"k1 {tuple(k1.shape)} / k2 {tuple(k2.shape)} do not "
+                         f"match ΣC={C}, cout={cout}")
+    if cout > _MAX_COUT:
+        raise ValueError(f"scse_conv3x3_pair kernel: cout={cout} > "
+                         f"{_MAX_COUT} does not fit one block's shared memory")
+    coutP = padded16(cout)
+    gc, wsse, bsse = gate_operands(gate_c, sse_kernel, sse_bias, B, C, dev)
+    w1 = tap_major(k1, dtype, C, coutP)
+    w2 = tap_major(k2, dtype, coutP, coutP)
+    s1, b1 = affine(scale1, bias1, cout, dev)
+    s2, b2 = affine(scale2, bias2, cout, dev)
+    y2 = torch.empty((B, cout, H, W), dtype=dtype, device=dev)
+    csum = torch.empty((B, cout), dtype=_F32, device=dev)
+    partial = torch.empty((B, lib.decode_pair_tiles(H, W), cout), dtype=_F32,
+                          device=dev)
+    gmap, gmap_ptr = gate_map_scratch(gated, B, H, W, dev)
+    ptrs, chs = part_arrays(parts, channels)
+    rc = lib.decode_pair_fwd(
+        _DTYPE_CODES[dtype], len(parts), ptrs, chs, int(up_part0),
+        gc.data_ptr(), wsse.data_ptr(), bsse.data_ptr(), gmap_ptr,
+        w1.data_ptr(),
+        s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
+        b2.data_ptr(), y2.data_ptr(), partial.data_ptr(), csum.data_ptr(), B,
+        H, W, cout, coutP, int(relu), int(gated), ctypes.c_void_p(stream))
+    del gmap, partial       # alive until the launches were enqueued
+    return rc, y2, csum
+
+
+def scse_conv3x3_pair(parts: Sequence[torch.Tensor], gate_c, sse_kernel,
+                      sse_bias, k1, scale1: Optional[torch.Tensor],
+                      bias1: Optional[torch.Tensor], k2,
+                      scale2: Optional[torch.Tensor],
+                      bias2: Optional[torch.Tensor], relu: bool = True,
+                      gated: bool = True, tile_rows: Optional[int] = None,
+                      up_part0: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused decode-node conv stack + channel-sum epilogue (see module doc).
+
+    parts: (B, c_i, H, W) maps of one dtype; with ``up_part0`` part 0 is
+    (B, c_0, H/2, W). gate_c: (B, ΣC) fp32, already sigmoided; sse_kernel:
+    (ΣC,); sse_bias: scalar. k1: (cout, ΣC, 3, 3); k2: (cout, cout, 3, 3);
+    scale*/bias*: (cout,) folded BN (None = identity). ``tile_rows`` (the
+    TPU kernel's row-tile knob) is accepted and ignored. The CUDA kernel
+    takes cout ≤ 64 and raises beyond.
+
+    Returns ``(y2, csum)``: y2 (B, cout, H, W) in the parts' dtype, csum
+    (B, cout) fp32 = Σ_hw y2.
+    """
+    del tile_rows
+    parts = list(parts)
+    if not on_cuda("scse_conv3x3_pair", parts[0]):
+        return scse_conv3x3_pair_reference(
+            parts, gate_c, sse_kernel, sse_bias, k1, scale1, bias1, k2,
+            scale2, bias2, relu, gated, up_part0)
+    global launches
+    lib = _build.load("decode_pair")
+    dev = parts[0].device
+    with torch.cuda.device(dev):
+        rc, y2, csum = _run(
+            lib, torch.cuda.current_stream(dev).cuda_stream, parts, gate_c,
+            sse_kernel, sse_bias, k1, scale1, bias1, k2, scale2, bias2, relu,
+            gated, up_part0)
+    if rc != 0:
+        raise RuntimeError("scse_conv3x3_pair kernel failed to launch: CUDA "
+                           f"error {rc} (out {tuple(y2.shape)})")
+    launches += 1
+    return y2, csum

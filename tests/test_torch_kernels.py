@@ -9,7 +9,11 @@ runs where only torch is installed:
 Tolerances, as fractions of max|reference|: 1e-4 in fp32 (TF32 off; the
 kernel sums in another order), 3e-2 for bf16 inputs against the plain version
 computed in fp32 on the same bf16 values (the kernel rounds the projected q,
-k, v and the attention weights to bf16, as the Pallas kernel does).
+k, v and the attention weights to bf16, as the Pallas kernel does). The
+decode-node conv kernels round where their plain versions do, so in bf16 they
+differ from them by single roundings that fall the other way after another
+order of summation; the same bounds hold, and 1e-4 for the channel sums of
+the pair kernel in fp32.
 """
 
 import numpy as np
@@ -17,6 +21,9 @@ import pytest
 import torch
 
 from eyediseasesegmentation_tpu_torch.ops import axial_attention as AK
+from eyediseasesegmentation_tpu_torch.ops import conv as CK
+from eyediseasesegmentation_tpu_torch.ops import decode_pair as PK
+from eyediseasesegmentation_tpu_torch.ops import scse_conv as SK
 
 # (b, L, Cq, Cv or None for self-attention, heads, dv): the five main-path
 # callers of K1 with fewer sequences, and two ragged shapes that exercise the
@@ -93,3 +100,124 @@ def test_axial_attention_kernel_refuses_what_it_cannot_take(cuda_device):
     args, kw = _inputs("ragged", torch.float16, cuda_device)
     with pytest.raises(TypeError):
         AK.axial_attention(*args, dtype=torch.float16, **kw)
+
+
+# (part channels, cout, B, H, W) of the decode-node conv kernels: the four
+# main-path nodes at a reduced batch (x_0_2 runs at 256², the others at
+# 512²), and ragged shapes: odd W, ΣC and cout not multiples of 8, H smaller
+# than a tile, B = 1, more than 64 output channels (two passes; K3 and K4)
+CONV_SHAPES = {
+    "x_3_3": ([256, 64], 64, 2, 512, 512),
+    "x_2_3": ([256, 64, 64], 64, 1, 512, 512),
+    "x_1_3": ([256, 64, 64, 64], 64, 1, 512, 512),
+    "x_0_2": ([128, 256, 256, 256], 64, 2, 256, 256),
+    "ragged": ([5, 6], 12, 1, 5, 35),
+    "ragged_rows": ([24, 9], 20, 3, 23, 77),
+    "wide": ([8, 8], 100, 1, 8, 33),
+}
+
+
+def _conv_inputs(shape, dtype, device, up0=False, seed=0):
+    chs, cout, B, H, W = CONV_SHAPES[shape]
+    W += W % 2 if up0 else 0
+    H += H % 2 if up0 else 0
+    rng = np.random.RandomState(seed)
+
+    def arr(*s, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*s) * scale).astype(np.float32)).to(device)
+
+    parts = [arr(B, c, H, W).to(dtype) for c in chs]
+    if up0:
+        parts[0] = torch.nn.functional.interpolate(
+            arr(B, chs[0], H // 2, W // 2), scale_factor=(1, 2),
+            mode="bilinear", align_corners=False).to(dtype)
+    C = sum(chs)
+    return dict(
+        parts=parts, gate_c=torch.sigmoid(arr(B, C)),
+        sse_kernel=arr(C, scale=C ** -0.5), sse_bias=arr(1)[0],
+        k1=arr(cout, C, 3, 3, scale=(9 * C) ** -0.5),
+        s1=arr(cout).abs() + 0.5, b1=arr(cout, scale=0.1),
+        k2=arr(cout, cout, 3, 3, scale=(9 * cout) ** -0.5),
+        s2=arr(cout).abs() + 0.5, b2=arr(cout, scale=0.1))
+
+
+def _close(got, ref, tol):
+    ref = ref.float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
+@pytest.mark.parametrize("shape", list(CONV_SHAPES))
+def test_scse_conv_kernel_matches_plain(cuda_device, shape, gated, dtype):
+    dt = getattr(torch, dtype)
+    a = _conv_inputs(shape, dt, cuda_device)
+    args = (a["parts"], a["gate_c"], a["sse_kernel"], a["sse_bias"], a["k1"],
+            a["s1"], a["b1"])
+    before = SK.launches
+    got = SK.scse_conv3x3_bn_relu(*args, relu=gated, gated=gated)
+    torch.cuda.synchronize()
+    assert SK.launches == before + 1
+    ref = SK.scse_conv3x3_bn_relu_reference(*args, relu=gated, gated=gated)
+    assert got.dtype == dt and got.shape == ref.shape
+    _close(got, ref, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("shape", list(CONV_SHAPES))
+def test_conv3x3_kernel_matches_plain(cuda_device, shape, relu, dtype):
+    dt = getattr(torch, dtype)
+    a = _conv_inputs(shape, dt, cuda_device)
+    x = torch.cat(a["parts"], 1)
+    before = CK.launches
+    got = CK.conv3x3_bn_relu(x, a["k1"], a["s1"], a["b1"], relu=relu)
+    torch.cuda.synchronize()
+    assert CK.launches == before + 1
+    ref = CK.conv3x3_bn_relu_reference(x, a["k1"], a["s1"], a["b1"], relu)
+    assert got.dtype == dt and got.shape == ref.shape
+    _close(got, ref, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("up0", [False, True], ids=["full", "up_part0"])
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
+@pytest.mark.parametrize("shape", [s for s in CONV_SHAPES if s != "wide"])
+def test_decode_pair_kernel_matches_plain(cuda_device, shape, gated, up0,
+                                          dtype):
+    dt = getattr(torch, dtype)
+    a = _conv_inputs(shape, dt, cuda_device, up0=up0)
+    args = (a["parts"], a["gate_c"], a["sse_kernel"], a["sse_bias"], a["k1"],
+            a["s1"], a["b1"], a["k2"], a["s2"], a["b2"])
+    before = PK.launches
+    y2, csum = PK.scse_conv3x3_pair(*args, gated=gated, up_part0=up0)
+    again = PK.scse_conv3x3_pair(*args, gated=gated, up_part0=up0)[1]
+    torch.cuda.synchronize()
+    assert PK.launches == before + 2
+    r2, rsum = PK.scse_conv3x3_pair_reference(*args, gated=gated,
+                                              up_part0=up0)
+    assert y2.dtype == dt and y2.shape == r2.shape
+    assert csum.dtype == torch.float32 and csum.shape == rsum.shape
+    _close(y2, r2, TOL[dtype])
+    _close(csum, rsum, 1e-4 if dt == torch.float32 else TOL[dtype])
+    assert torch.equal(csum, again)       # fixed summation order
+
+
+@pytest.mark.cuda
+def test_conv_kernels_refuse_what_they_cannot_take(cuda_device):
+    a = _conv_inputs("wide", torch.float32, cuda_device)
+    args = (a["parts"], a["gate_c"], a["sse_kernel"], a["sse_bias"], a["k1"],
+            a["s1"], a["b1"], a["k2"], a["s2"], a["b2"])
+    with pytest.raises(ValueError, match="cout"):
+        PK.scse_conv3x3_pair(*args)               # 100 output channels
+    half = [p.half() for p in a["parts"]]
+    with pytest.raises(TypeError):
+        SK.scse_conv3x3_bn_relu(half, *args[1:7])
+    with pytest.raises(ValueError):
+        SK.scse_conv3x3_bn_relu([a["parts"][0], a["parts"][1][..., :-1]],
+                                *args[1:7])

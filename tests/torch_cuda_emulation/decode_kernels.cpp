@@ -1,0 +1,9 @@
+// The decode-node CUDA sources compiled for the host against the stand-in
+// headers of this directory (see tests/test_torch_kernel_emulation.py).
+#include "cuda_runtime.h"
+namespace dconv {
+alignas(128) unsigned char smem[256 * 1024];  // the kernels' `extern __shared__`
+}
+#include "conv3x3.cu"
+#include "scse_conv.cu"
+#include "decode_pair.cu"
