@@ -14,7 +14,8 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    five main-path shapes, fp32 (TF32 off) and bf16, with CUDA-event times;
 3. kernels K3 (scSE-gated conv), K2 (decode pair, ``up_part0`` off and on) at
    the four main-path node shapes and K4 (plain conv) at two of them: fp32 at
-   batch 1 and bf16 at batch 24 against their plain versions, with CUDA-event
+   batch 1 (K4's wmma kernel) and bf16 at batch 24 (K4's sm90 kernel: TMA and
+   wgmma) against their plain versions, with CUDA-event
    times of the kernel, the plain version and the library composition the
    logical path runs for the same stage (eager gating + ``torch.cat`` + cuDNN
    conv + BN + ReLU [+ conv2 + pooled sum]); each kernel's bound on this card
@@ -387,6 +388,7 @@ def phase_conv_kernels(device):
             torch.cuda.empty_cache()
 
     import torch.nn.functional as F
+    out["conv3x3"]["shapes"] = {}
     for shape, (cin, cout, res) in K4_SHAPES.items():
         for dname, batch in (("float32", 1), ("bfloat16", VIEWS)):
             dtype = getattr(torch, dname)
@@ -398,10 +400,18 @@ def phase_conv_kernels(device):
                 return torch.relu(y * c1[1].to(dtype).view(1, -1, 1, 1)
                                   + c1[2].to(dtype).view(1, -1, 1, 1))
 
+            # the variant is a function of dtype, width and alignment: the
+            # wmma kernel in fp32, the sm90 kernel in bf16 at these widths
+            var = CK.variant(dtype, res, x.data_ptr())
+            check(var == ("sm90" if dtype == torch.bfloat16 else "wmma"),
+                  f"conv3x3 {shape} {dname}: variant {var}")
+            before = getattr(CK, f"launches_{var}")
             got = CK.conv3x3_bn_relu(x, *c1)
             torch.cuda.synchronize()
+            check(getattr(CK, f"launches_{var}") == before + 1,
+                  f"conv3x3 {shape} {dname}: the {var} kernel did not run")
             ref = CK.conv3x3_bn_relu_reference(x, *c1)
-            line = [f"conv3x3 {shape} {cin}->{cout}@{res} b={batch}:",
+            line = [f"conv3x3 {shape} {cin}->{cout}@{res} b={batch} {var}:",
                     compare(f"conv3x3 {shape} {dname}", "conv3x3", got, ref,
                             dname, out["conv3x3"])]
             del got, ref
@@ -417,6 +427,10 @@ def phase_conv_kernels(device):
                             f"{t_l:.4f} ms bound {b_ms:.4f} ms ({b_by})")
                 for k, v in zip(keys, (t_k, t_p, t_l, f, nb)):
                     out["conv3x3"][k] += v
+                out["conv3x3"]["variant"] = var
+                out["conv3x3"]["shapes"][shape] = {
+                    "kernel_ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                    "bound_ms": b_ms, "bound_by": b_by}
             print(" | ".join(line), flush=True)
             del a, x, c1
             torch.cuda.empty_cache()
@@ -441,6 +455,8 @@ def kernel_modules():
 def reset_counts():
     for mod in kernel_modules().values():
         mod.launches = 0
+    from eyediseasesegmentation_tpu_torch.ops import conv
+    conv.launches_sm90 = conv.launches_wmma = 0
 
 
 def read_counts():
@@ -581,24 +597,28 @@ def phase_bench(device, mode):
 def phase_conv3x3_path(device):
     """K4 has no caller in any model: its path is its public function,
     driven here at the decode node's conv2 shape (64 → 64 at 512², 24
-    views, bf16). Returns the launch count of the call."""
+    views, bf16), where it takes the sm90 kernel. Returns the launch count of
+    the call."""
     import torch
-    from eyediseasesegmentation_tpu_torch.ops.conv import conv3x3_bn_relu
+    from eyediseasesegmentation_tpu_torch.ops import conv as CK
 
     cin, cout, res = K4_SHAPES["conv2"]
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     a = conv_inputs([cin], cout, res, VIEWS, torch.bfloat16, device, gen)
     reset_counts()
-    y = conv3x3_bn_relu(a["parts"][0], a["k1"], a["s1"], a["b1"])
+    y = CK.conv3x3_bn_relu(a["parts"][0], a["k1"], a["s1"], a["b1"])
     torch.cuda.synchronize()
     counts = read_counts()
+    by_variant = {"sm90": CK.launches_sm90, "wmma": CK.launches_wmma}
     check(tuple(y.shape) == (VIEWS, cout, res, res) and
           y.dtype == torch.bfloat16, f"conv3x3 path: {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()) and y.min().item() >= 0.0,
           "conv3x3 path: non-finite or negative output after ReLU")
-    check(counts["conv3x3"] == 1, f"conv3x3 path: launches {counts}")
+    check(counts["conv3x3"] == 1 and by_variant == {"sm90": 1, "wmma": 0},
+          f"conv3x3 path: launches {counts}, by variant {by_variant}")
     print(f"conv3x3 path: conv3x3_bn_relu {cin}->{cout}@{res} b={VIEWS} bf16,"
-          f" launches {counts['conv3x3']}", flush=True)
+          f" launches {counts['conv3x3']} (by variant {by_variant})",
+          flush=True)
     return counts["conv3x3"]
 
 
@@ -724,7 +744,9 @@ def main(argv=None) -> int:
         entry("decode_pair", runs["pair"]["decode_pair"], conv["decode_pair"],
               up_part0={"launches": runs["pair_up"]["decode_pair"],
                         **{k: up[k] for k in up}}),
-        entry("conv3x3", k4_launches, conv["conv3x3"]),
+        entry("conv3x3", k4_launches, conv["conv3x3"],
+              variant=conv["conv3x3"]["variant"],
+              shapes=conv["conv3x3"]["shapes"]),
     ]
     check(all(k["launches"] > 0 and k["up_part0"]["launches"] > 0
               if "up_part0" in k else k["launches"] > 0 for k in kernels),

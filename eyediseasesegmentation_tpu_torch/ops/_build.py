@@ -33,7 +33,7 @@ _KERNELS = {
         "axial_attention_fwd": [_I] + [_P] * 19 + [_I] * 12 + [_P],
     }),
     "conv3x3": ("conv3x3.cu", {
-        "conv3x3_fwd": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+        "conv3x3_fwd": [_I, _I] + [_P] * 5 + [_I] * 7 + [_P],
     }),
     "scse_conv": ("scse_conv.cu", {
         "scse_conv3x3_fwd": [_I, _I, _PP, _IP] + [_P] * 8 + [_I] * 7 + [_P],
@@ -85,7 +85,8 @@ def load(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o",
+                               str(tmp), str(src)],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr

@@ -2,12 +2,14 @@
 
 A CUDA kernel has no interpret mode, so ``tests/test_torch_kernels.py`` needs
 a GPU. This file compiles the same sources (``csrc/conv3x3.cu``,
-``scse_conv.cu``, ``decode_pair.cu`` over ``decode_conv.cuh``) with g++
-against the stand-in headers of ``tests/torch_cuda_emulation/`` (a
-std::thread per CUDA thread, a std::barrier for ``__syncthreads``, wmma done
-by lane 0 with its alignment rules asserted) and drives the library through
-the ops' own marshalling (``_run``) on CPU tensors, against the plain
-versions. It checks the kernels' index arithmetic, masking, staging and
+``scse_conv.cu``, ``decode_pair.cu`` over ``decode_conv.cuh`` and
+``sm90.cuh``) with g++ against the stand-in headers of
+``tests/torch_cuda_emulation/`` (a std::thread per CUDA thread, a
+std::barrier for ``__syncthreads``, wmma done by lane 0 with its alignment
+rules asserted; for the sm90 kernel, mbarriers under a lock, a TMA that
+copies and swizzles the box, and wgmma that reads its operands back through
+their descriptors) and drives the library through the ops' own marshalling
+(``_run``) on CPU tensors, against the plain versions. It checks the kernels' index arithmetic, masking, staging and
 rounding points at small shapes with several tiles, chunks and parts; it
 says nothing of what nvcc accepts, of speed, or of the memory model.
 Tolerances: 1e-5 of max|ref| in fp32 (another order of summation), 2e-2 in
@@ -109,9 +111,39 @@ def test_emulated_scse_conv_matches_plain(lib, shape, gated, relu, dtype):
 def test_emulated_conv3x3_matches_plain(lib, shape, dtype):
     gate, conv1, _ = _inputs(shape, getattr(torch, dtype), seed=2)
     x = torch.cat(gate[0], 1)
-    rc, got = CK._run(lib, None, x, *conv1, True)
+    rc, got, var = CK._run(lib, None, x, *conv1, True)
     assert rc == 0
+    assert var == CK.variant(x.dtype, x.shape[3], x.data_ptr())
     _close(got, CK.conv3x3_bn_relu_reference(x, *conv1, True), TOL[dtype][0])
+
+
+# (C, cout, B, H, W) for the sm90 kernel alone: one and two tiles across,
+# three 16-channel chunks, two passes of 64 output channels, a ragged bottom
+# edge, B = 2; a C that is not a multiple of 16 (the TMA's zero fill), cout
+# below 16, one chunk
+SM90_SHAPES = {
+    "w64": (96, 80, 1, 11, 64),
+    "w72": (96, 80, 1, 11, 72),
+    "c_tail": (20, 8, 2, 9, 16),
+}
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("shape", list(SM90_SHAPES))
+def test_emulated_conv3x3_sm90_matches_plain(lib, shape, relu):
+    C, cout, B, H, W = SM90_SHAPES[shape]
+    rng = np.random.RandomState(4)
+
+    def arr(*s, scale=1.0):
+        return torch.from_numpy((rng.randn(*s) * scale).astype(np.float32))
+
+    x = arr(B, C, H, W).to(torch.bfloat16)
+    conv = (arr(cout, C, 3, 3, scale=0.1), arr(cout), arr(cout))
+    rc, got, var = CK._run(lib, None, x, *conv, relu)
+    assert rc == 0 and var == "sm90"
+    ref = CK.conv3x3_bn_relu_reference(x, *conv, relu)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    _close(got, ref, TOL["bfloat16"][0])
 
 
 @pytest.mark.parametrize("dtype", list(TOL))

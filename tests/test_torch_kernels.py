@@ -174,13 +174,52 @@ def test_conv3x3_kernel_matches_plain(cuda_device, shape, relu, dtype):
     dt = getattr(torch, dtype)
     a = _conv_inputs(shape, dt, cuda_device)
     x = torch.cat(a["parts"], 1)
-    before = CK.launches
+    var = CK.variant(dt, x.shape[3], x.data_ptr())
+    before = CK.launches, getattr(CK, f"launches_{var}")
     got = CK.conv3x3_bn_relu(x, a["k1"], a["s1"], a["b1"], relu=relu)
     torch.cuda.synchronize()
-    assert CK.launches == before + 1
+    assert (CK.launches, getattr(CK, f"launches_{var}")) == (before[0] + 1,
+                                                             before[1] + 1)
     ref = CK.conv3x3_bn_relu_reference(x, a["k1"], a["s1"], a["b1"], relu)
     assert got.dtype == dt and got.shape == ref.shape
     _close(got, ref, TOL[dtype])
+
+
+# (C, cout, B, H, W) of the sm90 kernel (bf16, W % 8 == 0): the two shapes
+# chip_smoke times (448 -> 64 and 64 -> 64 at 512²) at batch 2; one and two
+# tiles across, three chunks, two passes and a ragged bottom edge; a C that
+# is not a multiple of 16 and cout below 16
+SM90_SHAPES = {
+    "conv1_x_1_3": (448, 64, 2, 512, 512),
+    "conv2": (64, 64, 2, 512, 512),
+    "w64": (96, 80, 1, 11, 64),
+    "w72": (96, 80, 1, 11, 72),
+    "c_tail": (20, 8, 2, 9, 16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "linear"])
+@pytest.mark.parametrize("shape", list(SM90_SHAPES))
+def test_conv3x3_sm90_kernel_matches_plain(cuda_device, shape, relu):
+    C, cout, B, H, W = SM90_SHAPES[shape]
+    rng = np.random.RandomState(5)
+
+    def arr(*s, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*s) * scale).astype(np.float32)).to(cuda_device)
+
+    x = arr(B, C, H, W).to(torch.bfloat16)
+    conv = (arr(cout, C, 3, 3, scale=(9 * C) ** -0.5), arr(cout).abs() + 0.5,
+            arr(cout, scale=0.1))
+    assert CK.variant(x.dtype, W, x.data_ptr()) == "sm90"
+    before = CK.launches_sm90
+    got = CK.conv3x3_bn_relu(x, *conv, relu=relu)
+    torch.cuda.synchronize()
+    assert CK.launches_sm90 == before + 1
+    ref = CK.conv3x3_bn_relu_reference(x, *conv, relu)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    _close(got, ref, TOL["bfloat16"])
 
 
 @pytest.mark.cuda

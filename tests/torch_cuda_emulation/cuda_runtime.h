@@ -9,6 +9,7 @@
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -19,11 +20,27 @@
 #define __launch_bounds__(...)
 #define __shared__
 #define __align__(x)
+#define __grid_constant__
+#define CUDART_VERSION 12080
 
 struct EmuDim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local EmuDim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* emu_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// The warp's threads are not lock-stepped here: __syncwarp is a barrier of
+// the 32 threads of the caller's warp (all of them must call it).
+inline void __syncwarp() {
+  static std::mutex lock;
+  static std::barrier<>* warps[64];
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> g(lock);
+    auto& w = warps[threadIdx.x / 32];
+    if (w == nullptr) w = new std::barrier<>(32);
+    bar = w;
+  }
+  bar->arrive_and_wait();
+}
 
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
@@ -39,6 +56,23 @@ cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes <= kEmuSharedLimit ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// libcuda's entry points, as the runtime hands them out: only the
+// stand-in cuTensorMapEncodeTiled of cuda.h.
+#include "cuda.h"
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0, cudaDriverEntryPointSymbolNotFound = 1 };
+constexpr unsigned long long cudaEnableDefault = 0;
+inline cudaError_t cudaGetDriverEntryPointByVersion(
+    const char* symbol, void** fn, unsigned int, unsigned long long,
+    cudaDriverEntryPointQueryResult* q) {
+  if (std::strcmp(symbol, "cuTensorMapEncodeTiled") != 0) {
+    *q = cudaDriverEntryPointSymbolNotFound;
+    return cudaErrorInvalidValue;
+  }
+  *fn = reinterpret_cast<void*>(&cuTensorMapEncodeTiled);
+  *q = cudaDriverEntryPointSuccess;
+  return cudaSuccess;
+}
 
 inline void emu_run_grid(const std::function<void()>& body, unsigned grid,
                          int nthreads, size_t smem) {
@@ -61,3 +95,5 @@ inline void emu_run_grid(const std::function<void()>& body, unsigned grid,
 }
 #define DCONV_LAUNCH(kernel, grid, smem, stream, params) \
   emu_run_grid([&] { kernel(params); }, grid, dconv::kThreads, smem)
+#define DCONV_LAUNCH_T(kernel, grid, threads, smem, stream, params) \
+  emu_run_grid([&] { kernel(params); }, grid, threads, smem)

@@ -2,7 +2,7 @@
 // headers of this directory (see tests/test_torch_kernel_emulation.py).
 #include "cuda_runtime.h"
 namespace dconv {
-alignas(128) unsigned char smem[256 * 1024];  // the kernels' `extern __shared__`
+alignas(1024) unsigned char smem[256 * 1024];  // the kernels' `extern __shared__`
 }
 #include "conv3x3.cu"
 #include "scse_conv.cu"

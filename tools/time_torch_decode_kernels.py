@@ -6,9 +6,11 @@ Builds K3 (``scse_conv3x3_bn_relu``), K2 (``scse_conv3x3_pair``, ``up_part0``
 off and on) and K4 (``conv3x3_bn_relu``) with nvcc, prints each kernel's
 registers and spills as ptxas reports them, and times the wrappers with CUDA
 events at x_1_3 (448 → 64 at 512²) and x_0_2 (896 → 64 at 256²), bf16, 24
-views, with one error check per node against the plain versions. A quick
-loop for kernel work; ``chip_smoke.py`` is the full check. Needs a CUDA
-device; imports no JAX.
+views, with one error check per node against the plain versions; then K4
+alone at chip_smoke's two K4 shapes (448 → 64 and 64 → 64 at 512², bf16, 24
+views), with the variant that ran, its error, and the library call (cuDNN
+conv + BN + ReLU) and bound beside it. A quick loop for kernel work;
+``chip_smoke.py`` is the full check. Needs a CUDA device; imports no JAX.
 """
 
 import sys
@@ -61,6 +63,34 @@ def main():
         print(f"  (max_abs_err, max|ref|): K3 {err}, K2 up_part0 y2 "
               f"{cs.rel_err(y2, r2)} csum {cs.rel_err(csum, rsum)}")
         del a, g, half, x, y2, csum, r2, rsum
+        torch.cuda.empty_cache()
+    time_k4(dev, gen)
+
+
+def time_k4(dev, gen):
+    """K4 at chip_smoke's K4 shapes: kernel, library and bound ms."""
+    import torch.nn.functional as F
+    for shape, (cin, cout, res) in cs.K4_SHAPES.items():
+        a = cs.conv_inputs([cin], cout, res, cs.VIEWS, torch.bfloat16, dev, gen)
+        x, (k, sc, bi) = a["parts"][0], (a["k1"], a["s1"], a["b1"])
+
+        def lib():
+            y = F.conv2d(x, k.bfloat16(), padding=1)
+            return torch.relu(y * sc.bfloat16().view(1, -1, 1, 1)
+                              + bi.bfloat16().view(1, -1, 1, 1))
+
+        var = CK.variant(x.dtype, res, x.data_ptr())
+        t_k = cs.time_ms(lambda: CK.conv3x3_bn_relu(x, k, sc, bi), 10, warm=2)
+        t_l = cs.time_ms(lib, 10, warm=2)
+        f = 2 * 9 * cin * cout * cs.VIEWS * res * res
+        nb = 2 * (cs.VIEWS * res * res * (cin + cout) + 9 * cin * cout)
+        b_ms, b_by = cs.bound_ms(f, nb)
+        err = cs.rel_err(CK.conv3x3_bn_relu(x, k, sc, bi),
+                         CK.conv3x3_bn_relu_reference(x, k, sc, bi))
+        print(f"K4 {shape} {cin}->{cout}@{res} b={cs.VIEWS} {var}: kernel "
+              f"{t_k:.3f} ms, library {t_l:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}); (max_abs_err, max|ref|) {err}", flush=True)
+        del a, x
         torch.cuda.empty_cache()
 
 
