@@ -14,23 +14,29 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    five main-path shapes, fp32 (TF32 off) and bf16, with CUDA-event times;
 3. kernels K3 (scSE-gated conv), K2 (decode pair, ``up_part0`` off and on) at
    the four main-path node shapes and K4 (plain conv) at two of them: fp32 at
-   batch 1 (K4's wmma kernel) and bf16 at batch 24 (K4's sm90 kernel: TMA and
-   wgmma) against their plain versions, with CUDA-event
-   times of the kernel, the plain version and the library composition the
-   logical path runs for the same stage (eager gating + ``torch.cat`` + cuDNN
-   conv + BN + ReLU [+ conv2 + pooled sum]); each kernel's bound on this card
-   from the bytes and operations of the call;
+   batch 1 (the wmma variants) and bf16 at batch 24 (the sm90 variants: TMA
+   and wgmma) against their plain versions, with CUDA-event times of the
+   kernel, the plain version and the library composition the logical path
+   runs for the same stage (eager gating + ``torch.cat`` + cuDNN conv + BN +
+   ReLU [+ conv2 + pooled sum]); each kernel's bound on this card from the
+   bytes and operations of the call;
 4. slice parity: one 1024² fp32 forward on the GPU with ``pallas_tail`` off
    and under each mode (``fast_min_res=256``) against the same forward on the
-   CPU (plain path), with the launches per forward;
+   CPU (plain path), with the launches per forward and variant (wmma); and
+   the same forward in bf16 under each mode against bf16 ``off``
+   (max|Δlogit| / max|logit|, at most ``ROUTE_BOUND``; the sm90 variants);
 5. the bench workload: d4 TTA in bf16 on 3 random 2848×4288 uint8 images,
    images/sec and peak memory, off and under each mode, with the launch
-   counts of the run; K4, which no model calls, is driven through its public
-   function at the decode node's conv2 shape.
+   counts of the run per variant (every K3 and K2 launch sm90); K4, which no
+   model calls, is driven through its public function at the decode node's
+   conv2 shape.
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
-Needs a CUDA device and the repository beside this file; imports no JAX.
+``--routes`` runs only the bf16 route check and prints its ratios without
+holding them to a bound (how the bound's baseline was measured, on the
+previous kernels). Needs a CUDA device and the repository beside this file;
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -55,6 +61,12 @@ K1_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 CONV_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 CSUM_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SLICE_TOL = 1e-3
+# bf16 forward under each pallas_tail route against bf16 off, max|Δlogit| /
+# max|logit|: twice what the wmma K3 and K2 gave on the same inputs before
+# their bf16 path moved to the sm90 body (``--routes`` on that version;
+# PERF.md, section 6)
+ROUTE_BASELINE = {"v1": 2.8514e-02, "pair": 3.2258e-02, "pair_up": 3.2258e-02}
+ROUTE_BOUND = {m: 2 * b for m, b in ROUTE_BASELINE.items()}
 # the card's peaks (NVIDIA H100 SXM data sheet): dense bf16 tensor-core rate
 # and device-memory rate
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -320,7 +332,8 @@ def phase_conv_kernels(device):
         return a["parts"], a["gate_c"], a["sse_k"], a["sse_b"]
 
     def variants(a):
-        """name → (kernel call, plain call, library call, pair, up0)."""
+        """name → (kernel call, plain call, library call, pair, up0,
+        parts)."""
         g = gate_args(a)
         c1 = (a["k1"], a["s1"], a["b1"])
         c2 = (a["k2"], a["s2"], a["b2"])
@@ -331,16 +344,17 @@ def phase_conv_kernels(device):
             "scse_conv": (
                 lambda: SK.scse_conv3x3_bn_relu(*g, *c1),
                 lambda: SK.scse_conv3x3_bn_relu_reference(*g, *c1),
-                lambda: library_stage(a, False), False, False),
+                lambda: library_stage(a, False), False, False, a["parts"]),
             "decode_pair": (
                 lambda: PK.scse_conv3x3_pair(*g, *c1, *c2),
                 lambda: PK.scse_conv3x3_pair_reference(*g, *c1, *c2),
-                lambda: library_stage(a, True), True, False),
+                lambda: library_stage(a, True), True, False, a["parts"]),
             "decode_pair_up": (
                 lambda: PK.scse_conv3x3_pair(*gh, *c1, *c2, up_part0=True),
                 lambda: PK.scse_conv3x3_pair_reference(*gh, *c1, *c2,
                                                        up_part0=True),
-                lambda: library_stage(half, True, up0=True), True, True),
+                lambda: library_stage(half, True, up0=True), True, True,
+                half["parts"]),
         }
 
     def compare(tag, name, got, ref, dname, acc):
@@ -360,15 +374,27 @@ def phase_conv_kernels(device):
                 acc["max_abs_err"] = max(acc["max_abs_err"], err)
         return f"{dname} " + " ".join(text)
 
+    mods = {"scse_conv": SK, "decode_pair": PK, "decode_pair_up": PK}
     for node, (chs, cout, res) in NODE_SHAPES.items():
         for dname, batch in (("float32", 1), ("bfloat16", VIEWS)):
             dtype = getattr(torch, dname)
             a = conv_inputs(chs, cout, res, batch, dtype, device, gen)
-            for name, (kern, plain, lib, pair, up0) in variants(a).items():
+            for name, (kern, plain, lib, pair, up0, parts) in variants(
+                    a).items():
                 tag = f"{name} {node} {dname}"
+                # the variant is a function of dtype, width, alignment and
+                # part channels: wmma in fp32, sm90 in bf16 at these nodes
+                var = SK.variant(dtype, res, [q.data_ptr() for q in parts],
+                                 chs)
+                check(var == ("sm90" if dtype == torch.bfloat16 else "wmma"),
+                      f"{tag}: variant {var}")
+                before = getattr(mods[name], f"launches_{var}")
                 got = kern()
                 torch.cuda.synchronize()
-                line = [f"{name} {node} {sum(chs)}->{cout}@{res} b={batch}:",
+                check(getattr(mods[name], f"launches_{var}") == before + 1,
+                      f"{tag}: the {var} kernel did not run")
+                line = [f"{name} {node} {sum(chs)}->{cout}@{res} b={batch} "
+                        f"{var}:",
                         compare(tag, name, got, plain(), dname, out[name])]
                 del got
                 if dtype == torch.bfloat16:
@@ -382,6 +408,7 @@ def phase_conv_kernels(device):
                                 f"({b_by})")
                     for k, v in zip(keys, (t_k, t_p, t_l, f, nb)):
                         out[name][k] += v
+                    out[name]["variant"] = var
                 print(" | ".join(line), flush=True)
                 torch.cuda.empty_cache()
             del a
@@ -452,15 +479,34 @@ def kernel_modules():
             "decode_pair": decode_pair, "conv3x3": conv}
 
 
+VARIANT_KERNELS = ("scse_conv", "decode_pair", "conv3x3")
+
+
 def reset_counts():
-    for mod in kernel_modules().values():
+    for name, mod in kernel_modules().items():
         mod.launches = 0
-    from eyediseasesegmentation_tpu_torch.ops import conv
-    conv.launches_sm90 = conv.launches_wmma = 0
+        if name in VARIANT_KERNELS:
+            mod.launches_sm90 = mod.launches_wmma = 0
 
 
 def read_counts():
     return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def read_variant_counts():
+    """{kernel: {"sm90": launches, "wmma": launches}} of the conv kernels."""
+    mods = kernel_modules()
+    return {name: {v: getattr(mods[name], f"launches_{v}")
+                   for v in ("sm90", "wmma")} for name in VARIANT_KERNELS}
+
+
+def check_variants(tag, by_variant, want):
+    """Every launch of K3 and K2 took the ``want`` variant."""
+    for name in ("scse_conv", "decode_pair"):
+        other = "wmma" if want == "sm90" else "sm90"
+        check(by_variant[name][other] == 0,
+              f"{tag}: {name} launches by variant {by_variant[name]}, "
+              f"expected only {want}")
 
 
 def expected_counts(mode, forwards):
@@ -513,6 +559,7 @@ def phase_slice(device):
         check(counts == expected_counts(mode, 1),
               f"slice {mode}: launches {counts}, expected "
               f"{expected_counts(mode, 1)}")
+        check_variants(f"slice {mode}", read_variant_counts(), "wmma")
         check(bool(torch.isfinite(got).all()), f"slice {mode}: non-finite "
                                                "logits")
         err = (got - want).abs().max().item()
@@ -526,6 +573,49 @@ def phase_slice(device):
         check(err <= bound, f"slice {mode}: max_abs_err {err} > {bound}")
         del gpu_model
         torch.cuda.empty_cache()
+
+
+def phase_routes(device, hold=True):
+    """bf16 1024² forward under each pallas_tail route against bf16 off, on
+    the same weights and input: max|Δlogit| / max|logit| of off, held to
+    ``ROUTE_BOUND`` (with ``hold``), and every K3 and K2 launch sm90."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    x = torch.randn(2, 3, SCALE, SCALE, generator=gen).to(device,
+                                                          torch.bfloat16)
+    want, ratios = None, {}
+    for mode in TAIL_MODES:
+        model = build_model(torch.bfloat16, device, mode=mode)
+        reset_counts()
+        with torch.inference_mode():
+            got = model(x).float()
+        torch.cuda.synchronize()
+        check(got.shape == (2, 1, SCALE, SCALE) and
+              bool(torch.isfinite(got).all()),
+              f"routes {mode}: shape {tuple(got.shape)} or non-finite logits")
+        counts, by_variant = read_counts(), read_variant_counts()
+        check(counts == expected_counts(mode, 1),
+              f"routes {mode}: launches {counts}, expected "
+              f"{expected_counts(mode, 1)}")
+        if want is None:
+            want = got
+            continue
+        top = want.abs().max().item()
+        ratios[mode] = (got - want).abs().max().item() / top
+        line = (f"bf16 route check {SCALE}² b=2 pallas_tail={mode} against "
+                f"off: max|Δlogit| / max|logit| = {ratios[mode]:.4e} "
+                f"(max|logit| {top:.4f})")
+        if hold:
+            check_variants(f"routes {mode}", by_variant, "sm90")
+            bound = ROUTE_BOUND[mode]
+            line += f" (<= {bound:.4e}), launches by variant {by_variant}"
+            check(ratios[mode] <= bound,
+                  f"routes {mode}: {ratios[mode]} > {bound}")
+        print(line, flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return ratios
 
 
 def bench_predictor(device, mode):
@@ -563,6 +653,7 @@ def phase_bench(device, mode):
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             counts = read_counts()               # ... and ends here
+            by_variant = read_variant_counts()
             break
         except torch.cuda.OutOfMemoryError:
             print(f"bench {mode}: batch {batch} does not fit", flush=True)
@@ -574,6 +665,7 @@ def phase_bench(device, mode):
     check(counts == expected_counts(mode, forwards),
           f"bench {mode}: launches {counts} in {forwards} forwards, expected "
           f"{expected_counts(mode, forwards)}")
+    check_variants(f"bench {mode}", by_variant, "sm90")
     check(tuple(probs.shape) == (batch, *FULL_HW),
           f"bench {mode}: output shape {tuple(probs.shape)}")
     check(bool(torch.isfinite(probs).all()), f"bench {mode}: non-finite "
@@ -587,11 +679,12 @@ def phase_bench(device, mode):
           f"{FULL_HW[0]}x{FULL_HW[1]} at {SCALE}², {iters} iters after "
           f"{warmup} warm-ups: {ips:.4f} images/sec "
           f"({1e3 * dt / iters:.2f} ms per batch), peak memory "
-          f"{peak / 2**30:.3f} GiB, launches {used} in {forwards} forwards",
-          flush=True)
+          f"{peak / 2**30:.3f} GiB, launches {used} in {forwards} forwards "
+          f"(K3 / K2 by variant {by_variant['scse_conv']} / "
+          f"{by_variant['decode_pair']})", flush=True)
     del predictor, imgs, probs
     torch.cuda.empty_cache()
-    return counts
+    return counts, by_variant
 
 
 def phase_conv3x3_path(device):
@@ -609,7 +702,7 @@ def phase_conv3x3_path(device):
     y = CK.conv3x3_bn_relu(a["parts"][0], a["k1"], a["s1"], a["b1"])
     torch.cuda.synchronize()
     counts = read_counts()
-    by_variant = {"sm90": CK.launches_sm90, "wmma": CK.launches_wmma}
+    by_variant = read_variant_counts()["conv3x3"]
     check(tuple(y.shape) == (VIEWS, cout, res, res) and
           y.dtype == torch.bfloat16, f"conv3x3 path: {tuple(y.shape)}")
     check(bool(torch.isfinite(y).all()) and y.min().item() >= 0.0,
@@ -619,7 +712,7 @@ def phase_conv3x3_path(device):
     print(f"conv3x3 path: conv3x3_bn_relu {cin}->{cout}@{res} b={VIEWS} bf16,"
           f" launches {counts['conv3x3']} (by variant {by_variant})",
           flush=True)
-    return counts["conv3x3"]
+    return counts["conv3x3"], by_variant
 
 
 def phase_profile(device, modes):
@@ -681,6 +774,9 @@ def main(argv=None) -> int:
                         help="comma-separated pallas_tail modes "
                              f"({', '.join(TAIL_MODES)}): print the device "
                              "time by op of one predict and stop")
+    parser.add_argument("--routes", action="store_true",
+                        help="print the bf16 route check's ratios, hold "
+                             "them to no bound, and stop")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -719,11 +815,16 @@ def main(argv=None) -> int:
             phase_profile(device, modes)
             print(card, flush=True)
             return 0
+        if args.routes:
+            phase_routes(device, hold=False)
+            print(card, flush=True)
+            return 0
         k1 = phase_kernel(device)
         conv = phase_conv_kernels(device)
         phase_slice(device)
+        phase_routes(device)
         runs = {mode: phase_bench(device, mode) for mode in TAIL_MODES}
-        k4_launches = phase_conv3x3_path(device)
+        k4_launches, k4_variants = phase_conv3x3_path(device)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -738,14 +839,21 @@ def main(argv=None) -> int:
                                          "library_ms")}, **extra}
 
     up = conv["decode_pair_up"]
+    counts = {mode: run[0] for mode, run in runs.items()}
+    by_variant = {mode: run[1] for mode, run in runs.items()}
     kernels = [
-        entry("axial_attention", runs["off"]["axial_attention"], k1),
-        entry("scse_conv", runs["v1"]["scse_conv"], conv["scse_conv"]),
-        entry("decode_pair", runs["pair"]["decode_pair"], conv["decode_pair"],
-              up_part0={"launches": runs["pair_up"]["decode_pair"],
+        entry("axial_attention", counts["off"]["axial_attention"], k1),
+        entry("scse_conv", counts["v1"]["scse_conv"], conv["scse_conv"],
+              variant=conv["scse_conv"]["variant"],
+              variants=by_variant["v1"]["scse_conv"]),
+        entry("decode_pair", counts["pair"]["decode_pair"],
+              conv["decode_pair"], variant=conv["decode_pair"]["variant"],
+              variants=by_variant["pair"]["decode_pair"],
+              up_part0={"launches": counts["pair_up"]["decode_pair"],
+                        "variants": by_variant["pair_up"]["decode_pair"],
                         **{k: up[k] for k in up}}),
         entry("conv3x3", k4_launches, conv["conv3x3"],
-              variant=conv["conv3x3"]["variant"],
+              variant=conv["conv3x3"]["variant"], variants=k4_variants,
               shapes=conv["conv3x3"]["shapes"]),
     ]
     check(all(k["launches"] > 0 and k["up_part0"]["launches"] > 0

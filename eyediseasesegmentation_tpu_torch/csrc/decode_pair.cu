@@ -1,26 +1,40 @@
-// The decode node's two convolutions in one kernel for Hopper (sm_90a), NCHW.
+// The decode node's two convolutions for Hopper (sm_90a), NCHW.
 //
 // Replaces: eyediseasesegmentation_tpu/ops/pallas_decode_pair.py, `_kernel`
 // (the Pallas TPU kernel behind `scse_conv3x3_pair`):
 //   y1 = relu?(scale1 * conv3x3(cat(parts) * T(scse gate)) + bias1)
 //   y2 = relu?(scale2 * conv3x3(y1) + bias2)
 //   csum[b, c] = sum over pixels of y2[b, c] in fp32, before its rounding
-// y1 never reaches device memory: a block computes it, rounded to the
-// compute type T, on its 5 x 32 output tile plus one ring, from an input
-// tile with two rings, keeps it channels-last in shared memory and runs the
-// second convolution from there. The ring is recomputed by neighbouring
-// blocks (1.5x the first stage's products). y1 outside the image is zero,
-// as SAME padding of the second convolution requires, not relu(bias1).
-// With up0, part 0 arrives at half height and its H-direction bilinear x2
-// is taken while the tile is filled (decode_conv.cuh, `PartsFiller`).
+// y1 is rounded to the compute type T between the convolutions and zero
+// outside the image (SAME padding of the second convolution, not
+// relu(bias1)). With up0, part 0 arrives at half height and the H direction
+// of its bilinear x2 is taken while the input is staged. Two variants,
+// chosen by the wrapper from dtype, width, alignment and the parts' channel
+// counts (ops/decode_pair.py `variant`):
+//
+// sm90 (bf16, W % 8 == 0, 16-byte-aligned parts, every part a multiple of
+// 16 channels): two launches of conv_sm90.cuh's TMA + wgmma body. The first
+// (GATE, and UP0 under up0) writes y1 to a bf16 scratch map in device
+// memory; the second reads it back by TMA, whose zero fill is y1's padding,
+// and its CSUM epilogue writes the channel sums of each output tile. y1 goes
+// through device memory rather than staying in shared memory: a resident y1
+// with its ring for the 8 x 64 output tile (84 KB) does not fit beside the
+// two 83 KB stages of the ring (232,448 bytes a block), and recomputing the
+// ring costs 1.29x the first convolution's products, while writing and
+// reading y1 costs 1.6 GB at x_1_3 (about 0.5 ms at 3.35 TB/s).
+//
+// wmma (fp32, and bf16 of other shapes; cout <= 64): decode_pair_kernel, one
+// kernel in which a block computes y1 on its 5 x 32 output tile plus one
+// ring, from an input tile with two rings, keeps it channels-last in shared
+// memory and runs the second convolution from there. The ring is recomputed
+// by neighbouring blocks (1.5x the first stage's products). The GEMM, and
+// what bounds it on this card, is described in decode_conv.cuh.
 //
 // csum: every block writes the sums of its tile to partial[b][tile][c] in a
 // fixed order, and a second small kernel adds the tiles of an image in tile
 // order, so the result does not change from run to run (no float atomics).
-//
-// The GEMM, and what bounds it on this card, is described in decode_conv.cuh.
 
-#include "decode_conv.cuh"
+#include "conv_sm90.cuh"
 
 namespace dconv {
 
@@ -104,15 +118,29 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // csum[b, c] = sum of partial[b, tile, c] over the tiles, in tile order.
-__global__ void csum_reduce_kernel(const PairParams p) {
+struct CsumParams {
+  const float* partial;  // (B, ntiles, cout)
+  float* csum;           // (B, cout)
+  int B, ntiles, cout;
+};
+
+__global__ void csum_reduce_kernel(const CsumParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B * p.cout) return;
   const int b = i / p.cout, c = i % p.cout;
-  const int ntiles = p.ntx * p.nty;
-  const float* src = p.partial + static_cast<size_t>(b) * ntiles * p.cout + c;
+  const float* src = p.partial + static_cast<size_t>(b) * p.ntiles * p.cout + c;
   float s = 0.f;
-  for (int t = 0; t < ntiles; ++t) s += src[static_cast<size_t>(t) * p.cout];
+  for (int t = 0; t < p.ntiles; ++t) s += src[static_cast<size_t>(t) * p.cout];
   p.csum[i] = s;
+}
+
+inline cudaError_t launch_csum_reduce(const PairParams& p, int ntiles,
+                                      cudaStream_t stream) {
+  const CsumParams c{p.partial, p.csum, p.B, ntiles, p.cout};
+  const unsigned grid =
+      static_cast<unsigned>((p.B * p.cout + kThreads - 1) / kThreads);
+  DCONV_LAUNCH(csum_reduce_kernel, grid, 0, stream, c);
+  return cudaGetLastError();
 }
 
 template <typename T, bool UP0>
@@ -132,39 +160,92 @@ cudaError_t launch_pair(const PairParams& p, const GateMapParams& g,
   DCONV_LAUNCH(kernel, static_cast<unsigned>(grid), smem, stream, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned rgrid = static_cast<unsigned>((p.B * p.cout + kThreads - 1) /
-                                               kThreads);
-  DCONV_LAUNCH(csum_reduce_kernel, rgrid, 0, stream, p);
-  return cudaGetLastError();
+  return launch_csum_reduce(p, p.ntx * p.nty, stream);
+}
+
+// The sm90 variant: the gate map; y1 by the gated (and blending) sm90 body
+// into the scratch map; y2 and its tile sums by the sm90 body on y1; the
+// tiles' sums in order.
+cudaError_t launch_pair_sm90(const PairParams& p, const GateMapParams& g,
+                             void* y1, cudaStream_t stream) {
+  Sm90Args a{};
+  a.parts = p.parts;
+  a.gate_c = p.gated ? p.gate_c : nullptr;
+  a.gmap = p.gated ? p.gmap : nullptr;
+  a.w = p.w1;
+  a.scale = p.scale1;
+  a.bias = p.bias1;
+  a.out = y1;
+  a.B = p.B;
+  a.H = p.H;
+  a.W = p.W;
+  a.cout = p.cout;
+  a.coutP = p.coutP;
+  a.relu = p.relu;
+  cudaError_t err = cudaSuccess;
+  if (p.gated) err = launch_gate_map<bf16>(g, stream);
+  if (err != cudaSuccess) return err;
+  if (p.parts.up0)
+    err = p.gated ? launch_conv_sm90<true, true, false>(a, stream)
+                  : launch_conv_sm90<false, true, false>(a, stream);
+  else
+    err = p.gated ? launch_conv_sm90<true, false, false>(a, stream)
+                  : launch_conv_sm90<false, false, false>(a, stream);
+  if (err != cudaSuccess) return err;
+  Sm90Args b = a;
+  b.parts = Parts{};
+  b.parts.n = 1;
+  b.parts.ptr[0] = y1;
+  b.parts.ch[0] = p.cout;
+  b.parts.off[1] = p.cout;
+  b.gate_c = b.gmap = nullptr;
+  b.w = p.w2;
+  b.scale = p.scale2;
+  b.bias = p.bias2;
+  b.out = p.out;
+  b.partial = p.partial;
+  err = launch_conv_sm90<false, false, true>(b, stream);
+  if (err != cudaSuccess) return err;
+  return launch_csum_reduce(p, sm90_tiles(p.H, p.W), stream);
 }
 
 }  // namespace dconv
 
-// Tiles an (H, W) map is cut into, so that the caller can size `partial`.
-extern "C" int decode_pair_tiles(int H, int W) {
+// Tiles a variant cuts an (H, W) map into, so that the caller can size
+// `partial`.
+extern "C" int decode_pair_tiles(int variant, int H, int W) {
+  if (variant == 1) return dconv::sm90_tiles(H, W);
   return ((W + dconv::kTW - 1) / dconv::kTW) *
          ((H + dconv::GeoPair::TH - 1) / dconv::GeoPair::TH);
 }
 
 // dtype: 0 = fp32, 1 = bf16. parts/channels: the first nparts entries are
 // the parts of the concat, (B, channels[i], H, W), or (B, channels[0], H/2,
-// W) for part 0 under up0. w1 is (9, C, coutP) and w2 (9, coutP, coutP) in
-// the compute type, zero-padded, coutP a multiple of 16 and at most 64.
-// partial is (B, decode_pair_tiles(H, W), cout) and gmap (B, H, W) fp32
-// scratch (gmap unused when gated is 0). Returns the cudaError_t of the
-// launches.
-extern "C" int decode_pair_fwd(int dtype, int nparts, const void* const* parts,
-                               const int* channels, int up0,
-                               const void* gate_c, const void* wsse,
+// W) for part 0 under up0. partial is (B, decode_pair_tiles(variant, H, W),
+// cout) and gmap (B, H, W) fp32 scratch (gmap unused when gated is 0).
+// variant 0 (wmma / FMA): w1 is (9, C, coutP) and w2 (9, coutP, coutP) in
+// the compute type, zero-padded, coutP a multiple of 16 and at most 64; y1
+// is unused. variant 1 (sm90, bf16 only): w1 and w2 are
+// sm90_weight_operand's, coutP a multiple of 64, y1 (B, cout, H, W) bf16
+// scratch, W % 8 == 0, the parts, weights, y1 and out 16-byte aligned and
+// every part but the last a multiple of 16 channels. Returns the
+// cudaError_t of the launches; cudaErrorInvalidValue for what the variant
+// does not take.
+extern "C" int decode_pair_fwd(int dtype, int variant, int nparts,
+                               const void* const* parts, const int* channels,
+                               int up0, const void* gate_c, const void* wsse,
                                const void* bsse, void* gmap, const void* w1,
                                const void* scale1, const void* bias1,
                                const void* w2, const void* scale2,
-                               const void* bias2, void* out, void* partial,
-                               void* csum, int B, int H, int W, int cout,
-                               int coutP, int relu, int gated, void* stream) {
+                               const void* bias2, void* y1, void* out,
+                               void* partial, void* csum, int B, int H, int W,
+                               int cout, int coutP, int relu, int gated,
+                               void* stream) {
   if (nparts < 1 || nparts > dconv::kMaxParts || B < 1 || H < 1 || W < 1 ||
-      cout < 1 || coutP < cout || coutP % 16 != 0 || coutP > dconv::kNC ||
-      (up0 && (H & 1))) {
+      cout < 1 || coutP < cout || coutP % 16 != 0 || (up0 && (H & 1)) ||
+      (variant != 0 && variant != 1) ||
+      (variant == 0 && coutP > dconv::kNC) ||
+      (variant == 1 && (dtype != 1 || y1 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dconv::PairParams p;
@@ -206,6 +287,8 @@ extern "C" int decode_pair_fwd(int dtype, int nparts, const void* const* parts,
   g.H = H;
   g.W = W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1)
+    return static_cast<int>(dconv::launch_pair_sm90(p, g, y1, s));
   cudaError_t err;
   if (dtype == 1) {
     err = up0 ? dconv::launch_pair<dconv::bf16, true>(p, g, s)

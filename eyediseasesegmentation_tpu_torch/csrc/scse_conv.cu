@@ -13,10 +13,18 @@
 // a haloed tile of all channels does not fit in shared memory, so the parts
 // are read twice: by a first small kernel that writes the spatial gate of
 // the whole map (decode_conv.cuh, gate_map_kernel), and by the convolution,
-// chunk by chunk. See decode_conv.cuh for the GEMM and for what bounds it on
-// this card.
+// chunk by chunk. Two convolution kernels, chosen by the wrapper from dtype,
+// width, alignment and the parts' channel counts (ops/scse_conv.py
+// `variant`):
+//
+// sm90 (bf16, W % 8 == 0, 16-byte-aligned parts, every part a multiple of
+// 16 channels): conv3x3_sm90_kernel<GATE, false, false> of conv_sm90.cuh,
+// TMA + wgmma; its producer warps gate each landed box in place.
+//
+// wmma (fp32, and bf16 of other shapes): scse_conv_kernel, the wmma / FMA
+// implicit GEMM of decode_conv.cuh, which says what bounds it on this card.
 
-#include "decode_conv.cuh"
+#include "conv_sm90.cuh"
 
 namespace dconv {
 
@@ -83,14 +91,42 @@ cudaError_t launch_scse_conv(const ScseConvParams& p, const GateMapParams& g,
   return cudaGetLastError();
 }
 
+// The sm90 variant: the gate map, then the sm90 body.
+cudaError_t launch_scse_conv_sm90(const ScseConvParams& p,
+                                  const GateMapParams& g, cudaStream_t stream) {
+  Sm90Args a{};
+  a.parts = p.parts;
+  a.gate_c = p.gated ? p.gate_c : nullptr;
+  a.gmap = p.gated ? p.gmap : nullptr;
+  a.w = p.w;
+  a.scale = p.scale;
+  a.bias = p.bias;
+  a.out = p.out;
+  a.B = p.B;
+  a.H = p.H;
+  a.W = p.W;
+  a.cout = p.cout;
+  a.coutP = p.coutP;
+  a.relu = p.relu;
+  if (!p.gated) return launch_conv_sm90<false, false, false>(a, stream);
+  const cudaError_t err = launch_gate_map<bf16>(g, stream);
+  if (err != cudaSuccess) return err;
+  return launch_conv_sm90<true, false, false>(a, stream);
+}
+
 }  // namespace dconv
 
 // dtype: 0 = fp32, 1 = bf16. parts/channels: the first nparts entries are
 // the (B, channels[i], H, W) parts of the concat. gmap is (B, H, W) fp32
-// scratch for the spatial gate (unused when gated is 0). w is (9, C, coutP)
-// in the compute type, coutP a multiple of 16. Returns the cudaError_t of
-// the launches.
-extern "C" int scse_conv3x3_fwd(int dtype, int nparts, const void* const* parts,
+// scratch for the spatial gate (unused when gated is 0). variant 0 (wmma /
+// FMA): w is (9, C, coutP) in the compute type, coutP a multiple of 16.
+// variant 1 (sm90, bf16 only): w is sm90_weight_operand's (coutP / 64,
+// ceil(C / 16), 9, 16, 64), W % 8 == 0, the parts, w and out 16-byte aligned
+// and every part but the last a multiple of 16 channels. Returns the
+// cudaError_t of the launches; cudaErrorInvalidValue for what the variant
+// does not take.
+extern "C" int scse_conv3x3_fwd(int dtype, int variant, int nparts,
+                                const void* const* parts,
                                 const int* channels, const void* gate_c,
                                 const void* wsse, const void* bsse,
                                 void* gmap, const void* w, const void* scale,
@@ -98,7 +134,8 @@ extern "C" int scse_conv3x3_fwd(int dtype, int nparts, const void* const* parts,
                                 int W, int cout, int coutP, int relu,
                                 int gated, void* stream) {
   if (nparts < 1 || nparts > dconv::kMaxParts || B < 1 || H < 1 || W < 1 ||
-      cout < 1 || coutP < cout || coutP % 16 != 0) {
+      cout < 1 || coutP < cout || coutP % 16 != 0 ||
+      (variant != 0 && variant != 1) || (variant == 1 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dconv::ScseConvParams p;
@@ -135,6 +172,8 @@ extern "C" int scse_conv3x3_fwd(int dtype, int nparts, const void* const* parts,
   g.H = H;
   g.W = W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1)
+    return static_cast<int>(dconv::launch_scse_conv_sm90(p, g, s));
   const cudaError_t err = dtype == 1
                               ? dconv::launch_scse_conv<dconv::bf16>(p, g, s)
                               : dconv::launch_scse_conv<float>(p, g, s);

@@ -36,11 +36,12 @@ _KERNELS = {
         "conv3x3_fwd": [_I, _I] + [_P] * 5 + [_I] * 7 + [_P],
     }),
     "scse_conv": ("scse_conv.cu", {
-        "scse_conv3x3_fwd": [_I, _I, _PP, _IP] + [_P] * 8 + [_I] * 7 + [_P],
+        "scse_conv3x3_fwd": [_I, _I, _I, _PP, _IP] + [_P] * 8 + [_I] * 7
+                            + [_P],
     }),
     "decode_pair": ("decode_pair.cu", {
-        "decode_pair_tiles": [_I, _I],
-        "decode_pair_fwd": ([_I, _I, _PP, _IP, _I] + [_P] * 13 + [_I] * 7
+        "decode_pair_tiles": [_I, _I, _I],
+        "decode_pair_fwd": ([_I, _I, _I, _PP, _IP, _I] + [_P] * 14 + [_I] * 7
                             + [_P]),
     }),
 }

@@ -22,17 +22,14 @@ from typing import Optional
 import torch
 
 from . import _build
-from .scse_conv import (_DTYPE_CODES, affine, check_parts, conv_affine,
-                        on_cuda, padded16, tap_major)
+from .scse_conv import (_DTYPE_CODES, VARIANTS, affine, check_parts,
+                        conv_affine, conv_weights, on_cuda)
 
 # Where the wrapper launches a kernel, and nowhere else: the total and each
 # variant's count.
 launches = 0
 launches_sm90 = 0
 launches_wmma = 0
-
-VARIANTS = {"wmma": 0, "sm90": 1}
-_SM90_K, _SM90_N = 16, 64        # input channels per stage, outputs per pass
 
 
 def variant(dtype, width: int, data_ptr: int) -> str:
@@ -42,31 +39,6 @@ def variant(dtype, width: int, data_ptr: int) -> str:
     if dtype == torch.bfloat16 and width % 8 == 0 and data_ptr % 16 == 0:
         return "sm90"
     return "wmma"
-
-
-def _swizzle128(t: torch.Tensor) -> torch.Tensor:
-    """The 128-byte swizzle of rows of 64 bf16 values (last dim), the row
-    index being the second-to-last dim: 16-byte piece j of row k moves to
-    piece j ^ (k % 8). Its own inverse."""
-    k = torch.arange(t.shape[-2], device=t.device)[:, None] % 8
-    src = torch.arange(8, device=t.device)[None, :] ^ k
-    pieces = t.reshape(*t.shape[:-1], 8, 8)
-    idx = src[..., None].expand(*pieces.shape[-3:]).expand_as(pieces)
-    return torch.gather(pieces, -2, idx).reshape(t.shape)
-
-
-def sm90_weight_operand(w: torch.Tensor) -> torch.Tensor:
-    """OIHW ``(cout, cin, 3, 3)`` → the sm90 kernel's B operand in bf16,
-    ``(ceil(cout/64), ceil(cin/16), 9, 16, 64)``: for each pass of 64 output
-    channels and chunk of 16 input channels, the 9 taps' (16 x 64) weight
-    matrices as 128-byte rows of output channels, zero-padded, with the
-    128-byte swizzle that wgmma's N-major operand expects (one bulk copy per
-    chunk lands it as the kernel reads it)."""
-    cout, cin = int(w.shape[0]), int(w.shape[1])
-    npass, nchunk = -(-cout // _SM90_N), -(-cin // _SM90_K)
-    wt = tap_major(w, torch.bfloat16, nchunk * _SM90_K, npass * _SM90_N)
-    wt = wt.view(9, nchunk, _SM90_K, npass, _SM90_N).permute(3, 1, 0, 2, 4)
-    return _swizzle128(wt.contiguous()).contiguous()
 
 
 def conv3x3_bn_relu_reference(x, w, scale=None, bias=None,
@@ -83,12 +55,7 @@ def _run(lib, stream, x, w, scale, bias, relu):
     if w.shape[1] != C:
         raise ValueError(f"w {tuple(w.shape)} does not match Cin={C}")
     var = variant(x.dtype, W, x.data_ptr())
-    if var == "sm90":
-        wt = sm90_weight_operand(w).to(x.device)
-        coutP = int(wt.shape[0]) * _SM90_N
-    else:
-        coutP = padded16(cout)
-        wt = tap_major(w, x.dtype, C, coutP)
+    wt, coutP = conv_weights(var, w, x.dtype, x.device)
     s, b = affine(scale, bias, cout, x.device)
     out = torch.empty((B, cout, H, W), dtype=x.dtype, device=x.device)
     rc = lib.conv3x3_fwd(_DTYPE_CODES[x.dtype], VARIANTS[var], x.data_ptr(),

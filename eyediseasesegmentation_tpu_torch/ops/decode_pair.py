@@ -13,11 +13,19 @@ and the H direction of the bilinear ×2 is taken inside: even rows
 0.25·r[m−1] + 0.75·r[m], odd rows 0.75·r[m] + 0.25·r[m+1], clamped at the
 edges, rounded to the dtype. Maps are NCHW, weights OIHW; names and argument
 order follow the JAX function. CPU parts take
-:func:`scse_conv3x3_pair_reference`; CUDA parts launch the kernel in
-``csrc/decode_pair.cu`` or raise. The kernel sums ``csum`` in a fixed order
+:func:`scse_conv3x3_pair_reference`; CUDA parts launch the kernels in
+``csrc/decode_pair.cu`` or raise. The kernels sum ``csum`` in a fixed order
 (per-tile partial sums, then the tiles in order), so it is the same from run
 to run; against the plain version it differs by fp32 reassociation (1e-4 of
 its largest value is the tolerance of the GPU checks).
+
+Two variants, chosen by :func:`variant` (that of ``ops/scse_conv.py``) from
+the dtype, the width, the alignment and the channel counts of the parts
+alone: ``"sm90"`` (bf16, W % 8 == 0, 16-byte-aligned parts, every part a
+multiple of 16 channels) runs the TMA + wgmma convolution twice, y1 going
+through a bf16 scratch map in device memory; ``"wmma"`` (fp32, and bf16 of
+other shapes) is one kernel that keeps y1 in shared memory and takes cout ≤
+64. A non-zero return code raises; nothing falls back to the other variant.
 """
 
 from __future__ import annotations
@@ -29,14 +37,18 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .scse_conv import (_DTYPE_CODES, _F32, affine, check_parts, conv_affine,
-                        gate_map_scratch, gate_operands, gated_concat,
-                        on_cuda, padded16, part_arrays, tap_major)
+from .scse_conv import (_DTYPE_CODES, _F32, VARIANTS, affine, check_parts,
+                        conv_affine, conv_weights, gate_map_scratch,
+                        gate_operands, gated_concat, on_cuda, part_arrays,
+                        tap_major, variant)
 
-# Where the kernel's wrapper launches it, and nowhere else.
+# Where the wrapper launches the kernels, and nowhere else: the total and
+# each variant's count (one per call).
 launches = 0
+launches_sm90 = 0
+launches_wmma = 0
 
-_MAX_COUT = 64      # the kernel keeps all of y1's channels in shared memory
+_MAX_COUT = 64      # the wmma kernel keeps y1's channels in shared memory
 
 
 def upsample2x_h(x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +76,9 @@ def scse_conv3x3_pair_reference(parts, gate_c, sse_kernel, sse_bias, k1,
 
 def _run(lib, stream, parts, gate_c, sse_kernel, sse_bias, k1, scale1, bias1,
          k2, scale2, bias2, relu, gated, up_part0):
-    """Marshal one call of ``decode_pair_fwd`` from ``lib``; returns
-    (cudaError_t, y2, csum)."""
+    """Marshal one call of ``decode_pair_fwd`` from ``lib``, with the
+    kernels :func:`variant` picks; returns (cudaError_t, y2, csum,
+    variant)."""
     parts, B, H, W, channels = check_parts("scse_conv3x3_pair", parts,
                                            up_part0)
     dtype, dev = parts[0].dtype, parts[0].device
@@ -73,30 +86,35 @@ def _run(lib, stream, parts, gate_c, sse_kernel, sse_bias, k1, scale1, bias1,
     if k1.shape[1] != C or tuple(k2.shape[:2]) != (cout, cout):
         raise ValueError(f"k1 {tuple(k1.shape)} / k2 {tuple(k2.shape)} do not "
                          f"match ΣC={C}, cout={cout}")
-    if cout > _MAX_COUT:
-        raise ValueError(f"scse_conv3x3_pair kernel: cout={cout} > "
+    var = variant(dtype, W, [p.data_ptr() for p in parts], channels)
+    if var == "wmma" and cout > _MAX_COUT:
+        raise ValueError(f"scse_conv3x3_pair wmma kernel: cout={cout} > "
                          f"{_MAX_COUT} does not fit one block's shared memory")
-    coutP = padded16(cout)
     gc, wsse, bsse = gate_operands(gate_c, sse_kernel, sse_bias, B, C, dev)
-    w1 = tap_major(k1, dtype, C, coutP)
-    w2 = tap_major(k2, dtype, coutP, coutP)
+    w1, coutP = conv_weights(var, k1, dtype, dev)
+    if var == "sm90":
+        w2 = conv_weights(var, k2, dtype, dev)[0]
+        y1 = torch.empty((B, cout, H, W), dtype=dtype, device=dev)
+    else:
+        w2, y1 = tap_major(k2, dtype, coutP, coutP), None
     s1, b1 = affine(scale1, bias1, cout, dev)
     s2, b2 = affine(scale2, bias2, cout, dev)
     y2 = torch.empty((B, cout, H, W), dtype=dtype, device=dev)
     csum = torch.empty((B, cout), dtype=_F32, device=dev)
-    partial = torch.empty((B, lib.decode_pair_tiles(H, W), cout), dtype=_F32,
-                          device=dev)
+    partial = torch.empty(
+        (B, lib.decode_pair_tiles(VARIANTS[var], H, W), cout), dtype=_F32,
+        device=dev)
     gmap, gmap_ptr = gate_map_scratch(gated, B, H, W, dev)
     ptrs, chs = part_arrays(parts, channels)
     rc = lib.decode_pair_fwd(
-        _DTYPE_CODES[dtype], len(parts), ptrs, chs, int(up_part0),
-        gc.data_ptr(), wsse.data_ptr(), bsse.data_ptr(), gmap_ptr,
-        w1.data_ptr(),
-        s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
-        b2.data_ptr(), y2.data_ptr(), partial.data_ptr(), csum.data_ptr(), B,
-        H, W, cout, coutP, int(relu), int(gated), ctypes.c_void_p(stream))
-    del gmap, partial       # alive until the launches were enqueued
-    return rc, y2, csum
+        _DTYPE_CODES[dtype], VARIANTS[var], len(parts), ptrs, chs,
+        int(up_part0), gc.data_ptr(), wsse.data_ptr(), bsse.data_ptr(),
+        gmap_ptr, w1.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        s2.data_ptr(), b2.data_ptr(), None if y1 is None else y1.data_ptr(),
+        y2.data_ptr(), partial.data_ptr(), csum.data_ptr(), B, H, W, cout,
+        coutP, int(relu), int(gated), ctypes.c_void_p(stream))
+    del gmap, partial, y1   # alive until the launches were enqueued
+    return rc, y2, csum, var
 
 
 def scse_conv3x3_pair(parts: Sequence[torch.Tensor], gate_c, sse_kernel,
@@ -113,7 +131,7 @@ def scse_conv3x3_pair(parts: Sequence[torch.Tensor], gate_c, sse_kernel,
     (B, c_0, H/2, W). gate_c: (B, ΣC) fp32, already sigmoided; sse_kernel:
     (ΣC,); sse_bias: scalar. k1: (cout, ΣC, 3, 3); k2: (cout, cout, 3, 3);
     scale*/bias*: (cout,) folded BN (None = identity). ``tile_rows`` (the
-    TPU kernel's row-tile knob) is accepted and ignored. The CUDA kernel
+    TPU kernel's row-tile knob) is accepted and ignored. The wmma variant
     takes cout ≤ 64 and raises beyond.
 
     Returns ``(y2, csum)``: y2 (B, cout, H, W) in the parts' dtype, csum
@@ -125,16 +143,20 @@ def scse_conv3x3_pair(parts: Sequence[torch.Tensor], gate_c, sse_kernel,
         return scse_conv3x3_pair_reference(
             parts, gate_c, sse_kernel, sse_bias, k1, scale1, bias1, k2,
             scale2, bias2, relu, gated, up_part0)
-    global launches
+    global launches, launches_sm90, launches_wmma
     lib = _build.load("decode_pair")
     dev = parts[0].device
     with torch.cuda.device(dev):
-        rc, y2, csum = _run(
+        rc, y2, csum, var = _run(
             lib, torch.cuda.current_stream(dev).cuda_stream, parts, gate_c,
             sse_kernel, sse_bias, k1, scale1, bias1, k2, scale2, bias2, relu,
             gated, up_part0)
     if rc != 0:
-        raise RuntimeError("scse_conv3x3_pair kernel failed to launch: CUDA "
-                           f"error {rc} (out {tuple(y2.shape)})")
+        raise RuntimeError(f"scse_conv3x3_pair {var} kernels failed to "
+                           f"launch: CUDA error {rc} (out {tuple(y2.shape)})")
     launches += 1
+    if var == "sm90":
+        launches_sm90 += 1
+    else:
+        launches_wmma += 1
     return y2, csum

@@ -11,9 +11,17 @@ with the gating product in the parts' dtype T, fp32 accumulation, the affine
 and ReLU in fp32 and the output in T. Maps are NCHW here (NHWC in the JAX
 package) and the conv weight is torch's OIHW ``(cout, ΣC, 3, 3)``; names and
 argument order follow the JAX function. Parts on the CPU take
-:func:`scse_conv3x3_bn_relu_reference`; CUDA parts launch the kernel in
+:func:`scse_conv3x3_bn_relu_reference`; CUDA parts launch a kernel in
 ``csrc/scse_conv.cu`` (built on first use) or raise. The concat is never
 materialized on the kernel route.
+
+Two kernels, chosen by :func:`variant` from the dtype, the width, the
+alignment and the channel counts of the parts alone: ``"sm90"`` (bf16, W % 8
+== 0, 16-byte-aligned parts, every part a multiple of 16 channels: TMA,
+mbarriers and wgmma, the gate applied by the producer warps) and ``"wmma"``
+(fp32, and bf16 of other shapes: the wmma / FMA kernel over
+``csrc/decode_conv.cuh``). A non-zero return code raises; nothing falls back
+to the other kernel.
 
 The helpers here also serve ``ops/conv.py`` and ``ops/decode_pair.py``.
 """
@@ -31,9 +39,28 @@ from . import _build
 _F32 = torch.float32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_PARTS = 8
+VARIANTS = {"wmma": 0, "sm90": 1}
+_SM90_K, _SM90_N = 16, 64          # input channels per stage, outputs per pass
 
-# Where the kernel's wrapper launches it, and nowhere else.
+# Where the wrapper launches a kernel, and nowhere else: the total and each
+# variant's count.
 launches = 0
+launches_sm90 = 0
+launches_wmma = 0
+
+
+def variant(dtype, width: int, data_ptrs: Sequence[int],
+            part_channels: Sequence[int]) -> str:
+    """The kernel that takes parts of ``dtype`` and ``width`` whose data
+    start at ``data_ptrs``, with ``part_channels`` channels: ``"sm90"``
+    where the TMA can read every part (bf16, rows of a multiple of 16
+    bytes, 16-byte-aligned bases) and no 16-channel chunk straddles two
+    parts, else ``"wmma"``."""
+    if (dtype == torch.bfloat16 and width % 8 == 0
+            and all(p % 16 == 0 for p in data_ptrs)
+            and all(c % _SM90_K == 0 for c in part_channels)):
+        return "sm90"
+    return "wmma"
 
 
 # ---------------------------------------------------------------------------
@@ -179,29 +206,65 @@ def padded16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle of rows of 64 bf16 values (last dim), the row
+    index being the second-to-last dim: 16-byte piece j of row k moves to
+    piece j ^ (k % 8). Its own inverse."""
+    k = torch.arange(t.shape[-2], device=t.device)[:, None] % 8
+    src = torch.arange(8, device=t.device)[None, :] ^ k
+    pieces = t.reshape(*t.shape[:-1], 8, 8)
+    idx = src[..., None].expand(*pieces.shape[-3:]).expand_as(pieces)
+    return torch.gather(pieces, -2, idx).reshape(t.shape)
+
+
+def sm90_weight_operand(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``(cout, cin, 3, 3)`` → the sm90 kernels' B operand in bf16,
+    ``(ceil(cout/64), ceil(cin/16), 9, 16, 64)``: for each pass of 64 output
+    channels and chunk of 16 input channels, the 9 taps' (16 x 64) weight
+    matrices as 128-byte rows of output channels, zero-padded, with the
+    128-byte swizzle that wgmma's N-major operand expects (one bulk copy per
+    chunk lands it as the kernel reads it)."""
+    cout, cin = int(w.shape[0]), int(w.shape[1])
+    npass, nchunk = -(-cout // _SM90_N), -(-cin // _SM90_K)
+    wt = tap_major(w, torch.bfloat16, nchunk * _SM90_K, npass * _SM90_N)
+    wt = wt.view(9, nchunk, _SM90_K, npass, _SM90_N).permute(3, 1, 0, 2, 4)
+    return _swizzle128(wt.contiguous()).contiguous()
+
+
+def conv_weights(var: str, w: torch.Tensor, dtype, device):
+    """(weight operand, coutP) of a variant: the sm90 B operand with cout
+    padded to passes of 64, or the tap-major matrix padded to 16."""
+    cout, cin = int(w.shape[0]), int(w.shape[1])
+    if var == "sm90":
+        wt = sm90_weight_operand(w).to(device)
+        return wt, int(wt.shape[0]) * _SM90_N
+    return tap_major(w, dtype, cin, padded16(cout)), padded16(cout)
+
+
 def _run(lib, stream, parts, gate_c, sse_kernel, sse_bias, k3, scale, bias,
          relu, gated):
-    """Marshal one call of ``scse_conv3x3_fwd`` from ``lib``; returns
-    (cudaError_t, output)."""
+    """Marshal one call of ``scse_conv3x3_fwd`` from ``lib``, with the
+    kernel :func:`variant` picks; returns (cudaError_t, output, variant)."""
     parts, B, H, W, channels = check_parts("scse_conv3x3_bn_relu", parts)
     dtype, dev = parts[0].dtype, parts[0].device
     C, cout = sum(channels), int(k3.shape[0])
     if k3.shape[1] != C:
         raise ValueError(f"k3 {tuple(k3.shape)} does not match ΣC={C}")
-    coutP = padded16(cout)
+    var = variant(dtype, W, [p.data_ptr() for p in parts], channels)
     gc, wsse, bsse = gate_operands(gate_c, sse_kernel, sse_bias, B, C, dev)
-    w = tap_major(k3, dtype, C, coutP)
+    w, coutP = conv_weights(var, k3, dtype, dev)
     s, b = affine(scale, bias, cout, dev)
     out = torch.empty((B, cout, H, W), dtype=dtype, device=dev)
     gmap, gmap_ptr = gate_map_scratch(gated, B, H, W, dev)
     ptrs, chs = part_arrays(parts, channels)
     rc = lib.scse_conv3x3_fwd(
-        _DTYPE_CODES[dtype], len(parts), ptrs, chs, gc.data_ptr(),
+        _DTYPE_CODES[dtype], VARIANTS[var], len(parts), ptrs, chs,
+        gc.data_ptr(),
         wsse.data_ptr(), bsse.data_ptr(), gmap_ptr, w.data_ptr(), s.data_ptr(),
         b.data_ptr(), out.data_ptr(), B, H, W, cout, coutP, int(relu),
         int(gated), ctypes.c_void_p(stream))
     del gmap        # alive until the launch above was enqueued
-    return rc, out
+    return rc, out, var
 
 
 def on_cuda(name: str, t: torch.Tensor) -> bool:
@@ -234,15 +297,19 @@ def scse_conv3x3_bn_relu(parts: Sequence[torch.Tensor], gate_c, sse_kernel,
     if not on_cuda("scse_conv3x3_bn_relu", parts[0]):
         return scse_conv3x3_bn_relu_reference(
             parts, gate_c, sse_kernel, sse_bias, k3, scale, bias, relu, gated)
-    global launches
+    global launches, launches_sm90, launches_wmma
     lib = _build.load("scse_conv")
     dev = parts[0].device
     with torch.cuda.device(dev):
-        rc, out = _run(lib, torch.cuda.current_stream(dev).cuda_stream, parts,
-                       gate_c, sse_kernel, sse_bias, k3, scale, bias, relu,
-                       gated)
+        rc, out, var = _run(lib, torch.cuda.current_stream(dev).cuda_stream,
+                            parts, gate_c, sse_kernel, sse_bias, k3, scale,
+                            bias, relu, gated)
     if rc != 0:
-        raise RuntimeError("scse_conv3x3_bn_relu kernel failed to launch: "
-                           f"CUDA error {rc} (out {tuple(out.shape)})")
+        raise RuntimeError(f"scse_conv3x3_bn_relu {var} kernel failed to "
+                           f"launch: CUDA error {rc} (out {tuple(out.shape)})")
     launches += 1
+    if var == "sm90":
+        launches_sm90 += 1
+    else:
+        launches_wmma += 1
     return out

@@ -117,8 +117,18 @@ CONV_SHAPES = {
 }
 
 
+# (part channels, cout, B, H, W) of the sm90 variants of K3 and K2 (bf16,
+# W % 8 == 0, every part a multiple of 16 channels): x_1_3 at batch 1, and
+# two parts at W = 72 (a partial second tile) with odd H (even under
+# up_part0) and cout 24 (a padded pass)
+SM90_NODE_SHAPES = {
+    "x_1_3": ([256, 64, 64, 64], 64, 1, 512, 512),
+    "w72_odd": ([32, 16], 24, 2, 9, 72),
+}
+
+
 def _conv_inputs(shape, dtype, device, up0=False, seed=0):
-    chs, cout, B, H, W = CONV_SHAPES[shape]
+    chs, cout, B, H, W = {**CONV_SHAPES, **SM90_NODE_SHAPES}[shape]
     W += W % 2 if up0 else 0
     H += H % 2 if up0 else 0
     rng = np.random.RandomState(seed)
@@ -244,6 +254,44 @@ def test_decode_pair_kernel_matches_plain(cuda_device, shape, gated, up0,
     assert csum.dtype == torch.float32 and csum.shape == rsum.shape
     _close(y2, r2, TOL[dtype])
     _close(csum, rsum, 1e-4 if dt == torch.float32 else TOL[dtype])
+    assert torch.equal(csum, again)       # fixed summation order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["scse_conv", "pair", "pair_up"])
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
+@pytest.mark.parametrize("shape", list(SM90_NODE_SHAPES))
+def test_decode_node_sm90_kernels_match_plain(cuda_device, shape, gated,
+                                              kernel):
+    up0 = kernel == "pair_up"
+    a = _conv_inputs(shape, torch.bfloat16, cuda_device, up0=up0, seed=6)
+    parts = a["parts"]
+    assert SK.variant(torch.bfloat16, parts[0].shape[3],
+                      [p.data_ptr() for p in parts],
+                      [p.shape[1] for p in parts]) == "sm90"
+    args = (parts, a["gate_c"], a["sse_kernel"], a["sse_bias"], a["k1"],
+            a["s1"], a["b1"])
+    if kernel == "scse_conv":
+        before = SK.launches_sm90
+        got = SK.scse_conv3x3_bn_relu(*args, relu=gated, gated=gated)
+        torch.cuda.synchronize()
+        assert SK.launches_sm90 == before + 1
+        ref = SK.scse_conv3x3_bn_relu_reference(*args, relu=gated,
+                                                gated=gated)
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _close(got, ref, TOL["bfloat16"])
+        return
+    args += (a["k2"], a["s2"], a["b2"])
+    before = PK.launches_sm90
+    y2, csum = PK.scse_conv3x3_pair(*args, gated=gated, up_part0=up0)
+    again = PK.scse_conv3x3_pair(*args, gated=gated, up_part0=up0)[1]
+    torch.cuda.synchronize()
+    assert PK.launches_sm90 == before + 2
+    r2, rsum = PK.scse_conv3x3_pair_reference(*args, gated=gated,
+                                              up_part0=up0)
+    assert y2.dtype == torch.bfloat16 and y2.shape == r2.shape
+    _close(y2, r2, TOL["bfloat16"])
+    _close(csum, rsum, TOL["bfloat16"])
     assert torch.equal(csum, again)       # fixed summation order
 
 

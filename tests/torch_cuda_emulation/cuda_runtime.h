@@ -42,7 +42,20 @@ inline void __syncwarp() {
   bar->arrive_and_wait();
 }
 
+// A butterfly exchange of the caller's warp through a slot per lane, between
+// two warp barriers (all 32 threads must call it).
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  static float slots[64][32];
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  slots[w][l] = v;
+  __syncwarp();
+  const float r = slots[w][l ^ mask];
+  __syncwarp();
+  return r;
+}
+
 struct uint4 { unsigned x, y, z, w; };
+struct float2 { float x, y; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 
