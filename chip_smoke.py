@@ -11,7 +11,11 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    libraries from ``eyediseasesegmentation_tpu_torch/csrc`` (one nvcc per
    source, started together) and print the build times;
 2. kernel K1 (fused axial attention) against its plain PyTorch version at the
-   five main-path shapes, fp32 (TF32 off) and bf16, with CUDA-event times;
+   five main-path shapes: fp32 (TF32 off) on the wmma variant, bf16 on the
+   sm90 variant (TMA + wgmma projection, mma.sync attention), with
+   CUDA-event times of the kernel, the plain version (fp32) and the library
+   composition in bf16 (cuBLAS projection, einsum products, softmax: the
+   plain version run in bf16), per shape and per forward;
 3. kernels K3 (scSE-gated conv), K2 (decode pair, ``up_part0`` off and on) at
    the four main-path node shapes and K4 (plain conv) at two of them: fp32 at
    batch 1 (the wmma variants) and bf16 at batch 24 (the sm90 variants: TMA
@@ -22,12 +26,13 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    bytes and operations of the call;
 4. slice parity: one 1024² fp32 forward on the GPU with ``pallas_tail`` off
    and under each mode (``fast_min_res=256``) against the same forward on the
-   CPU (plain path), with the launches per forward and variant (wmma); and
-   the same forward in bf16 under each mode against bf16 ``off``
-   (max|Δlogit| / max|logit|, at most ``ROUTE_BOUND``; the sm90 variants);
+   CPU (plain path), with the launches per forward and variant (wmma, K1
+   included); and the same forward in bf16 under each mode against bf16
+   ``off`` (max|Δlogit| / max|logit|, at most ``ROUTE_BOUND``; the sm90
+   variants, K1 included);
 5. the bench workload: d4 TTA in bf16 on 3 random 2848×4288 uint8 images,
    images/sec and peak memory, off and under each mode, with the launch
-   counts of the run per variant (every K3 and K2 launch sm90); K4, which no
+   counts of the run per variant (every K1, K3 and K2 launch sm90); K4, which no
    model calls, is driven through its public function at the decode node's
    conv2 shape.
 
@@ -187,26 +192,39 @@ def bound_ms(flops, nbytes):
 
 
 def phase_kernel(device):
-    """K1 against its plain version at the main-path shapes."""
+    """K1 against its plain version at the main-path shapes: fp32 on the wmma
+    variant, bf16 on the sm90 variant."""
     import torch
     from eyediseasesegmentation_tpu_torch.ops import axial_attention as AK
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    worst, ms, plain_ms, flops, nbytes = 0.0, 0.0, 0.0, 0, 0
-    for shape, (_, _, _, _, _, b, calls) in K1_SHAPES.items():
+    worst, ms, plain_ms, lib_ms, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0, 0
+    shapes = {}
+    for shape, (L, cq, cv, H, dv, b, calls) in K1_SHAPES.items():
         line = [f"K1 {shape} b={b}:"]
         for dname, tol in K1_TOL.items():
             dtype = getattr(torch, dname)
             args, kw = k1_inputs(shape, dtype, device, gen)
+            # the variant is a function of dtype and shapes: wmma in fp32,
+            # sm90 in bf16 at these shapes
+            var = AK.variant(dtype, L, H, kw["dkq"], dv, cq, cv or cq,
+                             [args[0].data_ptr(), args[1].data_ptr()],
+                             cv is None)
+            check(var == ("sm90" if dtype == torch.bfloat16 else "wmma"),
+                  f"K1 {shape} {dname}: variant {var}")
+            before = getattr(AK, f"launches_{var}")
             got = AK.axial_attention(*args, dtype=dtype, **kw)
             torch.cuda.synchronize()
+            check(getattr(AK, f"launches_{var}") == before + 1,
+                  f"K1 {shape} {dname}: the {var} kernel did not run")
             ref_args = list(args)
             ref_args[0], ref_args[1] = args[0].float(), args[1].float()
             ref = AK.axial_attention_reference(*ref_args, dtype=torch.float32,
                                                **kw)
             err = (got.float() - ref).abs().max().item()
             bound = tol * ref.abs().max().item()
-            line.append(f"{dname} max_abs_err={err:.3e} (<= {bound:.3e})")
+            line.append(f"{dname} {var} max_abs_err={err:.3e} "
+                        f"(<= {bound:.3e})")
             check(got.shape == ref.shape and got.dtype == dtype,
                   f"K1 {shape} {dname}: shape/dtype {tuple(got.shape)} "
                   f"{got.dtype}")
@@ -217,22 +235,32 @@ def phase_kernel(device):
                 t_k = time_ms(lambda: AK.axial_attention(*args, dtype=dtype,
                                                          **kw), 10)
                 t_p = time_ms(lambda: AK.axial_attention_reference(
+                    *ref_args, dtype=torch.float32, **kw), 10)
+                t_l = time_ms(lambda: AK.axial_attention_reference(
                     *args, dtype=dtype, **kw), 10)
                 f, nb = k1_work(shape)
+                b_ms, b_by = bound_ms(f, nb)
                 line.append(f"bf16 kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-                            f"bound {bound_ms(f, nb)[0]:.4f} ms")
+                            f"library {t_l:.4f} ms bound {b_ms:.4f} ms "
+                            f"({b_by})")
                 ms += calls * t_k
                 plain_ms += calls * t_p
+                lib_ms += calls * t_l
                 flops += calls * f
                 nbytes += calls * nb
+                shapes[shape] = {"kernel_ms": t_k, "plain_ms": t_p,
+                                 "library_ms": t_l, "bound_ms": b_ms,
+                                 "bound_by": b_by, "calls": calls}
             del args, got, ref, ref_args
         print(" | ".join(line), flush=True)
     b_ms, b_by = bound_ms(flops, nbytes)
-    print(f"K1 per forward (12 calls, bf16): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    print(f"K1 per forward (12 calls, bf16, sm90): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "variant": "sm90", "shapes": shapes}
 
 
 def conv_inputs(chs, cout, res, batch, dtype, device, gen):
@@ -479,7 +507,7 @@ def kernel_modules():
             "decode_pair": decode_pair, "conv3x3": conv}
 
 
-VARIANT_KERNELS = ("scse_conv", "decode_pair", "conv3x3")
+VARIANT_KERNELS = ("axial_attention", "scse_conv", "decode_pair", "conv3x3")
 
 
 def reset_counts():
@@ -494,15 +522,15 @@ def read_counts():
 
 
 def read_variant_counts():
-    """{kernel: {"sm90": launches, "wmma": launches}} of the conv kernels."""
+    """{kernel: {"sm90": launches, "wmma": launches}} of every kernel."""
     mods = kernel_modules()
     return {name: {v: getattr(mods[name], f"launches_{v}")
                    for v in ("sm90", "wmma")} for name in VARIANT_KERNELS}
 
 
 def check_variants(tag, by_variant, want):
-    """Every launch of K3 and K2 took the ``want`` variant."""
-    for name in ("scse_conv", "decode_pair"):
+    """Every launch of K1, K3 and K2 took the ``want`` variant."""
+    for name in ("axial_attention", "scse_conv", "decode_pair"):
         other = "wmma" if want == "sm90" else "sm90"
         check(by_variant[name][other] == 0,
               f"{tag}: {name} launches by variant {by_variant[name]}, "
@@ -680,8 +708,9 @@ def phase_bench(device, mode):
           f"{warmup} warm-ups: {ips:.4f} images/sec "
           f"({1e3 * dt / iters:.2f} ms per batch), peak memory "
           f"{peak / 2**30:.3f} GiB, launches {used} in {forwards} forwards "
-          f"(K3 / K2 by variant {by_variant['scse_conv']} / "
-          f"{by_variant['decode_pair']})", flush=True)
+          f"(K1 / K3 / K2 by variant {by_variant['axial_attention']} / "
+          f"{by_variant['scse_conv']} / {by_variant['decode_pair']})",
+          flush=True)
     del predictor, imgs, probs
     torch.cuda.empty_cache()
     return counts, by_variant
@@ -748,7 +777,7 @@ def phase_profile(device, modes):
                 continue
             if evt.device_type == DeviceType.CUDA:
                 busy += dev
-                if "dconv::" not in evt.key and "axial_attention" not in evt.key:
+                if "dconv::" not in evt.key and "axial" not in evt.key:
                     continue
             rows.append((dev, evt.count, evt.key))
         rows.sort(reverse=True)
@@ -842,7 +871,10 @@ def main(argv=None) -> int:
     counts = {mode: run[0] for mode, run in runs.items()}
     by_variant = {mode: run[1] for mode, run in runs.items()}
     kernels = [
-        entry("axial_attention", counts["off"]["axial_attention"], k1),
+        entry("axial_attention", counts["off"]["axial_attention"], k1,
+              variant=k1["variant"],
+              variants=by_variant["off"]["axial_attention"],
+              shapes=k1["shapes"]),
         entry("scse_conv", counts["v1"]["scse_conv"], conv["scse_conv"],
               variant=conv["scse_conv"]["variant"],
               variants=by_variant["v1"]["scse_conv"]),

@@ -1,5 +1,8 @@
-// Fused eval axial attention for Hopper (sm_90a), one thread block per
-// length-L sequence.
+// Fused eval axial attention for Hopper (sm_90a): K1's two kernels. The
+// bf16 path at the main-path shapes is the TMA + wgmma + mma.sync kernel of
+// axial_sm90.cuh (C entry axial_attention_sm90_fwd there); fp32, and shapes
+// that one does not take, run the first kernel below ("wmma" in
+// ops/axial_attention.py `variant`), one thread block per length-L sequence.
 //
 // Replaces: eyediseasesegmentation_tpu/ops/axial_attention.py, `_kernel`
 // (the Pallas TPU kernel behind `axial_attention`). It computes, with every
@@ -15,26 +18,21 @@
 // fp32; r_v transposed to (d, j, i) and rounded to T, as the Pallas kernel
 // reads it. Accumulation is fp32 throughout.
 //
-// What bounds it on this card: at the largest main-path call (L=64, C=512,
-// 8 heads of dkq=8, dv=64, 1536 sequences) the projection is about 64 GFLOP
-// and the attention about 13 GFLOP against about 100 MB of inputs, so the
-// call is compute-bound, and one block per SM (the tiles below take up to
-// 227 KB of shared memory) leaves latency poorly hidden. The design keeps
-// everything but x and y out of device memory: the projected
-// (L, 2*dkq*H + dv*H) tile stays in shared memory in T (80 KB in bf16 at
-// L=64), the logits of a group of heads in fp32 beside it, and the r tables
-// (at most 1 MB, shared by all blocks) are read through L2, each entry once
-// per group of heads. The bf16 projection runs on the tensor cores (wmma
-// 16x16x16, fp32 accumulators) from double-buffered cp.async staging, so the
-// next chunk's loads overlap this chunk's products; the fp32 one on the FMA
-// units. The attention stages run on the FMA units, with each thread holding
-// a register tile of 4 channels x the group's heads.
-// Not yet done: wgmma/TMA for the projection, tensor cores for attn.v and
-// attn.r_v, and more than one block per SM at L=64.
+// The first kernel keeps everything but x and y out of device memory: the
+// projected (L, 2*dkq*H + dv*H) tile stays in shared memory in T, the logits
+// of a group of heads in fp32 beside it (up to 130 KB: one block per SM), and
+// the r tables are read through L2, each entry once per group of heads. The
+// bf16 projection runs on wmma 16x16x16 from double-buffered cp.async
+// staging, re-staging x for every 128-column pass; the fp32 one, and every
+// attention stage, on the FMA units, each thread holding a register tile of
+// 4 channels x the group's heads: in fp32 the FMA units keep the
+// reference's rounding (the tensor cores would round to TF32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "axial_sm90.cuh"
 
 #include <cmath>
 #include <cstddef>

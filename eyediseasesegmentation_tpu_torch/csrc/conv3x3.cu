@@ -28,8 +28,6 @@ struct Conv3x3Params {
   int B, H, W, C, cout, coutP, relu, ntx, nty;
 };
 
-using GeoOne = Geo<7, 1>;
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM<T>)
     conv3x3_kernel(const Conv3x3Params p) {

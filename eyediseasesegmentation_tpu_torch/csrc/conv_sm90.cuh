@@ -65,6 +65,7 @@
 #include <sm90.cuh>
 
 #include "decode_conv.cuh"
+#include "tensor_map.cuh"
 
 // How a kernel with its own thread count is launched. A host-side emulation
 // of the device code may define it otherwise.
@@ -486,39 +487,12 @@ __global__ void __launch_bounds__(s90::kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled of libcuda, found through the CUDA runtime (no
-// link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // The two maps of an NCHW bf16 map (B, C, rows, W), read by boxes of
 // box_rows rows.
 inline bool encode_maps(Sm90Maps& m, const void* x, int B, int C, int rows,
                         int W, int box_rows) {
   using namespace s90;
-  const EncodeTiled encode = encode_tiled();
+  const sm90::EncodeTiled encode = sm90::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(C),

@@ -623,4 +623,86 @@ __device__ void write_map(float* Cs, int q_begin, int ncols, int n0, int cout,
   }
 }
 
+
+// One convolution stage as a kernel of its own, over the (virtual concat of
+// the) parts: K3's wmma variant (gated), and both stages of K2's wmma
+// variant beyond kNC output channels, where y1 does not fit in shared
+// memory and goes through device memory (the first stage gated, and
+// blending under UP0; the second on y1 with CSUM). A block owns a 7 x 32
+// output tile and every output channel, in passes of kNC. With CSUM every
+// pass also writes its channels' fp32 sums over the tile's outputs inside
+// the image, after affine and ReLU and before rounding, to
+// partial[b][tile][c], each thread summing one channel in position order.
+struct StageParams {
+  Parts parts;
+  const float* gate_c;  // (B, C), already sigmoided
+  const float* gmap;    // (B, H, W) spatial gate, from gate_map_kernel
+  const void* w;        // (9, C, coutP) in T
+  const float* scale;   // (cout,)
+  const float* bias;    // (cout,)
+  void* out;            // (B, cout, H, W)
+  float* partial;       // (B, ntx * nty, cout) (CSUM)
+  int B, H, W, C, cout, coutP, relu, gated, ntx, nty;
+};
+
+using GeoOne = Geo<7, 1>;
+
+template <typename T, bool UP0, bool CSUM>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM<T>)
+    conv_stage_kernel(const StageParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using G = GeoOne;
+  using S = Smem<T, G>;
+  float* gs = reinterpret_cast<float*>(smem + S::gs);
+  T* tile = reinterpret_cast<T*>(smem + S::tile);
+  T* Ws = reinterpret_cast<T*>(smem + S::ws);
+  float* Cs = reinterpret_cast<float*>(smem + S::tile);
+  const BlockPos bp = block_pos<G::TH>(p.ntx, p.nty);
+  const int H = p.H, W = p.W, C = p.C;
+  constexpr int q_begin = G::PW + 1;
+  constexpr int nmt = ((G::TH - 1) * G::PW + kTW + 15) / 16;
+
+  if (p.gated) load_gates<G>(p.gmap, bp.b, bp.y0, bp.x0, H, W, gs);
+  const PartsFiller<T, G, UP0> fill{
+      p.parts,  bp.b, bp.y0, bp.x0,
+      H,        W,    C,     p.gated != 0,
+      p.gate_c, gs,   reinterpret_cast<ChunkTable*>(smem + S::tab),
+      tile,     S::lda};
+  for (int n0 = 0; n0 < p.coutP; n0 += kNC) {
+    conv_accumulate<T, G::PW>(fill, tile, S::lda, false, C,
+                              static_cast<const T*>(p.w), p.coutP, n0, q_begin,
+                              nmt, Ws, Cs);
+    const int ncols = p.coutP - n0 < kNC ? p.coutP - n0 : kNC;
+    write_map<T, G, 1, CSUM>(Cs, q_begin, ncols, n0, p.cout, p.scale, p.bias,
+                             p.relu != 0, static_cast<T*>(p.out), bp.b, bp.y0,
+                             bp.x0, H, W);
+    if (CSUM) {
+      __syncthreads();
+      const int c = static_cast<int>(threadIdx.x);
+      if (c < ncols && n0 + c < p.cout) {
+        const float* row = Cs + c * kLdc;
+        float s = 0.f;
+        for (int m = 0; m < kM; ++m) s += row[m];
+        p.partial[(static_cast<size_t>(bp.b) * p.ntx * p.nty + bp.tile) *
+                      p.cout + n0 + c] = s;
+      }
+    }
+  }
+}
+
+// Launches conv_stage_kernel over the map (the caller has launched the gate
+// map of a gated stage).
+template <typename T, bool UP0, bool CSUM>
+cudaError_t launch_stage(const StageParams& p, cudaStream_t stream) {
+  const int smem = static_cast<int>(Smem<T, GeoOne>::one);
+  void (*kernel)(const StageParams) = conv_stage_kernel<T, UP0, CSUM>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = static_cast<long long>(p.B) * p.ntx * p.nty;
+  if (grid > 2147483647LL) return cudaErrorInvalidValue;
+  DCONV_LAUNCH(kernel, static_cast<unsigned>(grid), smem, stream, p);
+  return cudaGetLastError();
+}
+
 }  // namespace dconv

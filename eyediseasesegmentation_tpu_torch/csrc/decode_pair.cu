@@ -23,12 +23,17 @@
 // ring costs 1.29x the first convolution's products, while writing and
 // reading y1 costs 1.6 GB at x_1_3 (about 0.5 ms at 3.35 TB/s).
 //
-// wmma (fp32, and bf16 of other shapes; cout <= 64): decode_pair_kernel, one
-// kernel in which a block computes y1 on its 5 x 32 output tile plus one
-// ring, from an input tile with two rings, keeps it channels-last in shared
-// memory and runs the second convolution from there. The ring is recomputed
-// by neighbouring blocks (1.5x the first stage's products). The GEMM, and
-// what bounds it on this card, is described in decode_conv.cuh.
+// wmma (fp32, and bf16 of other shapes): up to 64 output channels,
+// decode_pair_kernel, one kernel in which a block computes y1 on its 5 x 32
+// output tile plus one ring, from an input tile with two rings, keeps it
+// channels-last in shared memory and runs the second convolution from
+// there. The ring is recomputed by neighbouring blocks (1.5x the first
+// stage's products). Beyond 64 output channels y1 does not fit in shared
+// memory, so it goes through a scratch map in device memory, as in the sm90
+// variant: decode_conv.cuh's stage kernel writes it (gated, blending under
+// up0) and runs the second convolution on it with the channel-sum
+// epilogue, both in passes of 64 output channels. The GEMM, and what bounds
+// it on this card, is described in decode_conv.cuh.
 //
 // csum: every block writes the sums of its tile to partial[b][tile][c] in a
 // fixed order, and a second small kernel adds the tiles of an image in tile
@@ -163,6 +168,54 @@ cudaError_t launch_pair(const PairParams& p, const GateMapParams& g,
   return launch_csum_reduce(p, p.ntx * p.nty, stream);
 }
 
+// The wmma variant beyond 64 output channels: the gate map; y1 by the stage
+// kernel, gated (and blending), into the scratch map; y2 and its tiles'
+// sums by the stage kernel on y1 (w2 is (9, cout, coutP)); the tiles' sums
+// in order.
+template <typename T, bool UP0>
+cudaError_t launch_pair_wide(const PairParams& p, const GateMapParams& g,
+                             void* y1, cudaStream_t stream) {
+  StageParams a{};
+  a.parts = p.parts;
+  a.gate_c = p.gate_c;
+  a.gmap = p.gmap;
+  a.w = p.w1;
+  a.scale = p.scale1;
+  a.bias = p.bias1;
+  a.out = y1;
+  a.B = p.B;
+  a.H = p.H;
+  a.W = p.W;
+  a.C = p.C;
+  a.cout = p.cout;
+  a.coutP = p.coutP;
+  a.relu = p.relu;
+  a.gated = p.gated;
+  a.ntx = (p.W + kTW - 1) / kTW;
+  a.nty = (p.H + GeoOne::TH - 1) / GeoOne::TH;
+  cudaError_t err = cudaSuccess;
+  if (p.gated) err = launch_gate_map<T>(g, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_stage<T, UP0, false>(a, stream);
+  if (err != cudaSuccess) return err;
+  StageParams b = a;
+  b.parts = Parts{};
+  b.parts.n = 1;
+  b.parts.ptr[0] = y1;
+  b.parts.ch[0] = p.cout;
+  b.parts.off[1] = p.cout;
+  b.gated = 0;
+  b.w = p.w2;
+  b.scale = p.scale2;
+  b.bias = p.bias2;
+  b.out = p.out;
+  b.partial = p.partial;
+  b.C = p.cout;
+  err = launch_stage<T, false, true>(b, stream);
+  if (err != cudaSuccess) return err;
+  return launch_csum_reduce(p, a.ntx * a.nty, stream);
+}
+
 // The sm90 variant: the gate map; y1 by the gated (and blending) sm90 body
 // into the scratch map; y2 and its tile sums by the sm90 body on y1; the
 // tiles' sums in order.
@@ -212,7 +265,8 @@ cudaError_t launch_pair_sm90(const PairParams& p, const GateMapParams& g,
 }  // namespace dconv
 
 // Tiles a variant cuts an (H, W) map into, so that the caller can size
-// `partial`.
+// `partial` (wmma: the one-kernel form's, which are at least as many as the
+// stage kernel's beyond 64 output channels).
 extern "C" int decode_pair_tiles(int variant, int H, int W) {
   if (variant == 1) return dconv::sm90_tiles(H, W);
   return ((W + dconv::kTW - 1) / dconv::kTW) *
@@ -223,9 +277,10 @@ extern "C" int decode_pair_tiles(int variant, int H, int W) {
 // the parts of the concat, (B, channels[i], H, W), or (B, channels[0], H/2,
 // W) for part 0 under up0. partial is (B, decode_pair_tiles(variant, H, W),
 // cout) and gmap (B, H, W) fp32 scratch (gmap unused when gated is 0).
-// variant 0 (wmma / FMA): w1 is (9, C, coutP) and w2 (9, coutP, coutP) in
-// the compute type, zero-padded, coutP a multiple of 16 and at most 64; y1
-// is unused. variant 1 (sm90, bf16 only): w1 and w2 are
+// variant 0 (wmma / FMA): w1 is (9, C, coutP) in the compute type,
+// zero-padded, coutP a multiple of 16; up to coutP 64, w2 is (9, coutP,
+// coutP) and y1 unused; beyond, w2 is (9, cout, coutP) and y1 (B, cout, H,
+// W) scratch in the compute type. variant 1 (sm90, bf16 only): w1 and w2 are
 // sm90_weight_operand's, coutP a multiple of 64, y1 (B, cout, H, W) bf16
 // scratch, W % 8 == 0, the parts, weights, y1 and out 16-byte aligned and
 // every part but the last a multiple of 16 channels. Returns the
@@ -244,7 +299,7 @@ extern "C" int decode_pair_fwd(int dtype, int variant, int nparts,
   if (nparts < 1 || nparts > dconv::kMaxParts || B < 1 || H < 1 || W < 1 ||
       cout < 1 || coutP < cout || coutP % 16 != 0 || (up0 && (H & 1)) ||
       (variant != 0 && variant != 1) ||
-      (variant == 0 && coutP > dconv::kNC) ||
+      (variant == 0 && coutP > dconv::kNC && y1 == nullptr) ||
       (variant == 1 && (dtype != 1 || y1 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -290,6 +345,15 @@ extern "C" int decode_pair_fwd(int dtype, int variant, int nparts,
   if (variant == 1)
     return static_cast<int>(dconv::launch_pair_sm90(p, g, y1, s));
   cudaError_t err;
+  if (coutP > dconv::kNC) {
+    if (dtype == 1)
+      err = up0 ? dconv::launch_pair_wide<dconv::bf16, true>(p, g, y1, s)
+                : dconv::launch_pair_wide<dconv::bf16, false>(p, g, y1, s);
+    else
+      err = up0 ? dconv::launch_pair_wide<float, true>(p, g, y1, s)
+                : dconv::launch_pair_wide<float, false>(p, g, y1, s);
+    return static_cast<int>(err);
+  }
   if (dtype == 1) {
     err = up0 ? dconv::launch_pair<dconv::bf16, true>(p, g, s)
               : dconv::launch_pair<dconv::bf16, false>(p, g, s);

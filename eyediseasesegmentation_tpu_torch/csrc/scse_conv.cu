@@ -21,78 +21,26 @@
 // 16 channels): conv3x3_sm90_kernel<GATE, false, false> of conv_sm90.cuh,
 // TMA + wgmma; its producer warps gate each landed box in place.
 //
-// wmma (fp32, and bf16 of other shapes): scse_conv_kernel, the wmma / FMA
+// wmma (fp32, and bf16 of other shapes): conv_stage_kernel, the wmma / FMA
 // implicit GEMM of decode_conv.cuh, which says what bounds it on this card.
 
 #include "conv_sm90.cuh"
 
 namespace dconv {
 
-struct ScseConvParams {
-  Parts parts;
-  const float* gate_c;  // (B, C), already sigmoided
-  const float* gmap;    // (B, H, W) spatial gate, from gate_map_kernel
-  const void* w;        // (9, C, coutP) in T
-  const float* scale;   // (cout,)
-  const float* bias;    // (cout,)
-  void* out;            // (B, cout, H, W)
-  int B, H, W, C, cout, coutP, relu, gated, ntx, nty;
-};
-
-using GeoOne = Geo<7, 1>;
-
+// The wmma variant: the gate map, then decode_conv.cuh's stage kernel.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM<T>)
-    scse_conv_kernel(const ScseConvParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using G = GeoOne;
-  using S = Smem<T, G>;
-  float* gs = reinterpret_cast<float*>(smem + S::gs);
-  T* tile = reinterpret_cast<T*>(smem + S::tile);
-  T* Ws = reinterpret_cast<T*>(smem + S::ws);
-  float* Cs = reinterpret_cast<float*>(smem + S::tile);
-  const BlockPos bp = block_pos<G::TH>(p.ntx, p.nty);
-  const int H = p.H, W = p.W, C = p.C;
-  constexpr int q_begin = G::PW + 1;
-  constexpr int nmt = ((G::TH - 1) * G::PW + kTW + 15) / 16;
-
-  if (p.gated) load_gates<G>(p.gmap, bp.b, bp.y0, bp.x0, H, W, gs);
-  const PartsFiller<T, G, false> fill{
-      p.parts,  bp.b, bp.y0, bp.x0,
-      H,        W,    C,     p.gated != 0,
-      p.gate_c, gs,   reinterpret_cast<ChunkTable*>(smem + S::tab),
-      tile,     S::lda};
-  for (int n0 = 0; n0 < p.coutP; n0 += kNC) {
-    conv_accumulate<T, G::PW>(fill, tile, S::lda, false, C,
-                              static_cast<const T*>(p.w), p.coutP, n0, q_begin,
-                              nmt, Ws, Cs);
-    const int ncols = p.coutP - n0 < kNC ? p.coutP - n0 : kNC;
-    write_map<T, G, 1, false>(Cs, q_begin, ncols, n0, p.cout, p.scale, p.bias,
-                              p.relu != 0, static_cast<T*>(p.out), bp.b, bp.y0,
-                              bp.x0, H, W);
-  }
-}
-
-template <typename T>
-cudaError_t launch_scse_conv(const ScseConvParams& p, const GateMapParams& g,
+cudaError_t launch_scse_conv(const StageParams& p, const GateMapParams& g,
                              cudaStream_t stream) {
-  const int smem = static_cast<int>(Smem<T, GeoOne>::one);
-  cudaError_t err = cudaFuncSetAttribute(
-      scse_conv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long grid = static_cast<long long>(p.B) * p.ntx * p.nty;
-  if (grid > 2147483647LL) return cudaErrorInvalidValue;
   if (p.gated) {
-    err = launch_gate_map<T>(g, stream);
+    const cudaError_t err = launch_gate_map<T>(g, stream);
     if (err != cudaSuccess) return err;
   }
-  DCONV_LAUNCH(scse_conv_kernel<T>, static_cast<unsigned>(grid), smem, stream,
-               p);
-  return cudaGetLastError();
+  return launch_stage<T, false, false>(p, stream);
 }
 
 // The sm90 variant: the gate map, then the sm90 body.
-cudaError_t launch_scse_conv_sm90(const ScseConvParams& p,
+cudaError_t launch_scse_conv_sm90(const StageParams& p,
                                   const GateMapParams& g, cudaStream_t stream) {
   Sm90Args a{};
   a.parts = p.parts;
@@ -138,7 +86,7 @@ extern "C" int scse_conv3x3_fwd(int dtype, int variant, int nparts,
       (variant != 0 && variant != 1) || (variant == 1 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dconv::ScseConvParams p;
+  dconv::StageParams p;
   p.parts.n = nparts;
   p.parts.up0 = 0;
   p.parts.off[0] = 0;
@@ -153,6 +101,7 @@ extern "C" int scse_conv3x3_fwd(int dtype, int variant, int nparts,
   p.scale = static_cast<const float*>(scale);
   p.bias = static_cast<const float*>(bias);
   p.out = out;
+  p.partial = nullptr;
   p.B = B;
   p.H = H;
   p.W = W;

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives: each function is a thin wrapper over one PTX
 // form, taking generic pointers to shared memory. Every PTX string of the
-// port's wgmma kernels lives here, so that a host-side emulation can stand in
-// for this file (tests/torch_cuda_emulation/sm90.cuh).
+// port's wgmma and mma.sync kernels lives here, so that a host-side
+// emulation can stand in for this file (tests/torch_cuda_emulation/sm90.cuh).
 
 #pragma once
 
@@ -79,6 +79,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA tiled load of the box at (c0, c1) of a 2-D tensor map; as above.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // Bulk copy of `bytes` contiguous bytes (a multiple of 16, both ends 16-byte
 // aligned) into shared memory, completing on the barrier.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -131,8 +142,11 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
 }
 
 // d[64 x 64] = A[64 x 16] * B[16 x 64] + (accumulate ? d : 0), bf16
-// operands from shared memory, fp32 sums in the warpgroup's registers. TA / TB = 1: A is M-major, B is
-// N-major (the 16 K rows of each are 128-byte lines of 64 values). Thread t
+// operands from shared memory, fp32 sums in the warpgroup's registers.
+// TA / TB = 1: A is M-major, B is N-major (the 16 K rows of each are
+// 128-byte lines of 64 values). TA / TB = 0: K-major (each of the 64 rows
+// of A, or columns of B, is a 128-byte line of 64 K values, of which the
+// descriptor's start address picks 16: 32 bytes further per step). Thread t
 // of the warpgroup holds d[16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2)]
 // [8 * (i / 4) + 2 * (t % 4) + i % 2] in d[i].
 template <int TA, int TB>
@@ -158,6 +172,47 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+
+// ---- warp-level matrix products (mma.sync) ----------------------------------
+// Fragments of a warp, g = lane / 4, c = lane % 4, two bf16 values a register
+// (the lower index in the low half): A (16 x K, row-major) a0 = A[g][2c..],
+// a1 = A[g + 8][2c..], (K = 16) a2 = A[g][2c + 8..], a3 = A[g + 8][2c + 8..];
+// B (K x 8) b0 = B[2c..][g], (K = 16) b1 = B[2c + 8..][g]; D (16 x 8, fp32)
+// d0, d1 = D[g][2c], D[g][2c + 1], d2, d3 = D[g + 8][2c], D[g + 8][2c + 1].
+
+// d += A[16 x 8] * B[8 x 8], bf16 operands, fp32 sums.
+__device__ __forceinline__ void mma_m16n8k8_bf16(float (&d)[4], uint32_t a0,
+                                                 uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// d += A[16 x 16] * B[16 x 8], bf16 operands, fp32 sums.
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4],
+                                                  const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two 8 x 8 bf16 matrices from shared memory, transposed: lanes 0-7 give the
+// 16-byte rows of the first, lanes 8-15 those of the second (the other
+// lanes' addresses are not read); lane 4g + c receives rows 2c, 2c + 1 of
+// column g of matrix i in r[i]. Rows 16-byte aligned.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(row)));
 }
 
 }  // namespace sm90

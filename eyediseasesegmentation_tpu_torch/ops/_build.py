@@ -31,6 +31,8 @@ _PP, _IP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 _KERNELS = {
     "axial_attention": ("axial_attention.cu", {
         "axial_attention_fwd": [_I] + [_P] * 19 + [_I] * 12 + [_P],
+        "axial_attention_sm90_scratch": [_I] * 6,
+        "axial_attention_sm90_fwd": [_P] * 17 + [_I] * 7 + [_P],
     }),
     "conv3x3": ("conv3x3.cu", {
         "conv3x3_fwd": [_I, _I] + [_P] * 5 + [_I] * 7 + [_P],

@@ -6,12 +6,11 @@ Counterpart of ``eyediseasesegmentation_tpu/ops/pallas_decode_pair.py``:
     y2 = relu?(scale2 · conv3×3(y1) + bias2)
     csum[b, c] = Σ_hw y2[b, c]                    (fp32, before y2's rounding)
 
-``y1`` is rounded to the parts' dtype between the convs and never reaches
-device memory on the kernel route; the second conv pads it with zeros. With
-``up_part0`` part 0 is the W-upsampled half-height map (``upsample2x_w``)
-and the H direction of the bilinear ×2 is taken inside: even rows
-0.25·r[m−1] + 0.75·r[m], odd rows 0.75·r[m] + 0.25·r[m+1], clamped at the
-edges, rounded to the dtype. Maps are NCHW, weights OIHW; names and argument
+``y1`` is rounded to the parts' dtype between the convs; the second conv
+pads it with zeros. With ``up_part0`` part 0 is the W-upsampled half-height
+map (``upsample2x_w``) and the H direction of the bilinear ×2 is taken
+inside: even rows 0.25·r[m−1] + 0.75·r[m], odd rows 0.75·r[m] +
+0.25·r[m+1], clamped at the edges, rounded to the dtype. Maps are NCHW, weights OIHW; names and argument
 order follow the JAX function. CPU parts take
 :func:`scse_conv3x3_pair_reference`; CUDA parts launch the kernels in
 ``csrc/decode_pair.cu`` or raise. The kernels sum ``csum`` in a fixed order
@@ -24,8 +23,10 @@ the dtype, the width, the alignment and the channel counts of the parts
 alone: ``"sm90"`` (bf16, W % 8 == 0, 16-byte-aligned parts, every part a
 multiple of 16 channels) runs the TMA + wgmma convolution twice, y1 going
 through a bf16 scratch map in device memory; ``"wmma"`` (fp32, and bf16 of
-other shapes) is one kernel that keeps y1 in shared memory and takes cout ≤
-64. A non-zero return code raises; nothing falls back to the other variant.
+other shapes) is one kernel that keeps y1 in shared memory up to cout 64,
+and beyond runs the wmma stage kernel twice with y1 in a scratch map in
+device memory. A non-zero return code raises; nothing falls back to the
+other variant.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ launches = 0
 launches_sm90 = 0
 launches_wmma = 0
 
-_MAX_COUT = 64      # the wmma kernel keeps y1's channels in shared memory
+_Y1_RESIDENT = 64   # y1 channels the wmma kernel keeps in shared memory
 
 
 def upsample2x_h(x: torch.Tensor) -> torch.Tensor:
@@ -87,16 +88,15 @@ def _run(lib, stream, parts, gate_c, sse_kernel, sse_bias, k1, scale1, bias1,
         raise ValueError(f"k1 {tuple(k1.shape)} / k2 {tuple(k2.shape)} do not "
                          f"match ΣC={C}, cout={cout}")
     var = variant(dtype, W, [p.data_ptr() for p in parts], channels)
-    if var == "wmma" and cout > _MAX_COUT:
-        raise ValueError(f"scse_conv3x3_pair wmma kernel: cout={cout} > "
-                         f"{_MAX_COUT} does not fit one block's shared memory")
     gc, wsse, bsse = gate_operands(gate_c, sse_kernel, sse_bias, B, C, dev)
     w1, coutP = conv_weights(var, k1, dtype, dev)
+    wide = var == "wmma" and coutP > _Y1_RESIDENT   # y1 in device memory
     if var == "sm90":
         w2 = conv_weights(var, k2, dtype, dev)[0]
-        y1 = torch.empty((B, cout, H, W), dtype=dtype, device=dev)
     else:
-        w2, y1 = tap_major(k2, dtype, coutP, coutP), None
+        w2 = tap_major(k2, dtype, cout if wide else coutP, coutP)
+    y1 = (torch.empty((B, cout, H, W), dtype=dtype, device=dev)
+          if var == "sm90" or wide else None)
     s1, b1 = affine(scale1, bias1, cout, dev)
     s2, b2 = affine(scale2, bias2, cout, dev)
     y2 = torch.empty((B, cout, H, W), dtype=dtype, device=dev)
@@ -131,8 +131,7 @@ def scse_conv3x3_pair(parts: Sequence[torch.Tensor], gate_c, sse_kernel,
     (B, c_0, H/2, W). gate_c: (B, ΣC) fp32, already sigmoided; sse_kernel:
     (ΣC,); sse_bias: scalar. k1: (cout, ΣC, 3, 3); k2: (cout, cout, 3, 3);
     scale*/bias*: (cout,) folded BN (None = identity). ``tile_rows`` (the
-    TPU kernel's row-tile knob) is accepted and ignored. The wmma variant
-    takes cout ≤ 64 and raises beyond.
+    TPU kernel's row-tile knob) is accepted and ignored.
 
     Returns ``(y2, csum)``: y2 (B, cout, H, W) in the parts' dtype, csum
     (B, cout) fp32 = Σ_hw y2.

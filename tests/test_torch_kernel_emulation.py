@@ -37,7 +37,8 @@ EMU = Path(__file__).resolve().parent / "torch_cuda_emulation"
 TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # (part channels, cout, B, H, W): three chunks over three parts on one tile;
 # several tiles with ragged edges; odd width and cout (scalar gate loads);
-# 64 output channels; more than 64 (two passes, K3 and K4 only)
+# 64 output channels; more than 64 (two passes; the pair's wmma variant
+# keeps y1 in device memory there)
 SHAPES = {
     "chunks": ([40, 30, 7], 16, 1, 8, 34),
     "tiles": ([24, 8], 8, 2, 16, 40),
@@ -46,8 +47,10 @@ SHAPES = {
     "wide": ([8, 8], 100, 1, 8, 33),
 }
 # for the pair alone: parts of 16-channel multiples, W = 72 and odd H (even
-# under up_part0), which take the sm90 variant in bf16
-PAIR_SHAPES = {"sm90_parts": ([32, 16], 24, 1, 9, 72)}
+# under up_part0), which take the sm90 variant in bf16; with cout 100, two
+# passes of 64 output channels with their channel sums
+PAIR_SHAPES = {"sm90_parts": ([32, 16], 24, 1, 9, 72),
+               "sm90_wide": ([32, 16], 100, 1, 9, 72)}
 
 
 @pytest.fixture(scope="module")
@@ -75,6 +78,7 @@ def lib(tmp_path_factory):
 def _inputs(shape, dtype, up0=False, seed=1):
     chs, cout, B, H, W = {**SHAPES, **PAIR_SHAPES}[shape]
     H += H % 2 if up0 else 0
+    W += W % 2 if up0 else 0
     rng = np.random.RandomState(seed)
 
     def arr(*s, scale=1.0):
@@ -169,8 +173,7 @@ def test_emulated_conv3x3_sm90_matches_plain(lib, shape, relu):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("up0", [False, True], ids=["full", "up_part0"])
 @pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
-@pytest.mark.parametrize("shape",
-                         [s for s in SHAPES if s != "wide"] + list(PAIR_SHAPES))
+@pytest.mark.parametrize("shape", list(SHAPES) + list(PAIR_SHAPES))
 def test_emulated_decode_pair_matches_plain(lib, shape, gated, up0, dtype):
     gate, conv1, conv2 = _inputs(shape, getattr(torch, dtype), up0, seed=3)
     args = (*gate, *conv1, *conv2, True, gated, up0)

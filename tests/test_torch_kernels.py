@@ -26,16 +26,20 @@ from eyediseasesegmentation_tpu_torch.ops import decode_pair as PK
 from eyediseasesegmentation_tpu_torch.ops import scse_conv as SK
 
 # (b, L, Cq, Cv or None for self-attention, heads, dv): the five main-path
-# callers of K1 with fewer sequences, and two ragged shapes that exercise the
-# kernel's row, depth and column masking; the second has channel counts that
-# are not multiples of 8 (no 16-byte staging) and dv not a multiple of 4 (the
-# one-channel-per-thread attention stage)
+# callers of K1 with fewer sequences; two shapes of the sm90 variant's edges
+# (an odd count of L = 32 sequences, so the last block holds one; a K that is
+# not a multiple of 64, which the TMA fills with zeros); and two ragged
+# shapes that exercise the wmma kernel's row, depth and column masking; the
+# second has channel counts that are not multiples of 8 (no 16-byte staging)
+# and dv not a multiple of 4 (the one-channel-per-thread attention stage)
 SHAPES = {
     "layer4_first": (48, 64, 512, None, 8, 64),
     "layer4_shared": (48, 32, 512, None, 8, 64),
     "x_0_0": (48, 32, 2048, 64, 4, 16),
     "x_1_1": (48, 64, 1024, 32, 4, 8),
     "x_0_1": (48, 64, 256, 64, 4, 16),
+    "odd_l32": (5, 32, 512, None, 8, 64),
+    "k_tail": (6, 64, 136, 32, 4, 8),
     "ragged": (5, 20, 40, 24, 4, 6),
     "ragged_unaligned": (3, 24, 36, 20, 4, 5),
 }
@@ -52,7 +56,7 @@ def cuda_device():
 
 
 def _inputs(shape, dtype, device, seed=0, dkq=8):
-    b, L, cq, cv, H, dv = SHAPES[shape]
+    b, L, cq, cv, H, dv = SHAPES.get(shape, shape)
     cross = cv is not None
     nkq = H * (2 * dkq + (0 if cross else dv))
     rng = np.random.RandomState(seed)
@@ -96,16 +100,50 @@ def test_axial_attention_kernel_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_axial_attention_kernel_variant(cuda_device, shape, dtype):
+    # the main-path shapes and the sm90 edge shapes take the sm90 kernel in
+    # bf16; fp32 and the ragged shapes the wmma kernel
+    dt = getattr(torch, dtype)
+    args, kw = _inputs(shape, dt, cuda_device)
+    _, L, cq, cv, _, _ = SHAPES[shape]
+    want = ("sm90" if dt == torch.bfloat16 and shape not in
+            ("ragged", "ragged_unaligned") else "wmma")
+    assert AK.variant(dt, L, kw["heads"], kw["dkq"], kw["dv"], cq, cv or cq,
+                      [args[0].data_ptr(), args[1].data_ptr()],
+                      cv is None) == want
+    before = AK.launches_sm90, AK.launches_wmma
+    AK.axial_attention(*args, dtype=dt, **kw)
+    torch.cuda.synchronize()
+    assert (AK.launches_sm90, AK.launches_wmma) == (
+        before[0] + (want == "sm90"), before[1] + (want == "wmma"))
+
+
+@pytest.mark.cuda
 def test_axial_attention_kernel_refuses_what_it_cannot_take(cuda_device):
     args, kw = _inputs("ragged", torch.float16, cuda_device)
     with pytest.raises(TypeError):
         AK.axial_attention(*args, dtype=torch.float16, **kw)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_axial_attention_kernel_refuses_shapes_neither_variant_takes(
+        cuda_device, dtype):
+    dt = getattr(torch, dtype)
+    args, kw = _inputs((2, 80, 64, None, 4, 16), dt, cuda_device)  # L > 64
+    before = AK.launches
+    with pytest.raises(ValueError, match="L <= 64"):
+        AK.axial_attention(*args, dtype=dt, **kw)
+    assert AK.launches == before
+
+
 # (part channels, cout, B, H, W) of the decode-node conv kernels: the four
 # main-path nodes at a reduced batch (x_0_2 runs at 256², the others at
 # 512²), and ragged shapes: odd W, ΣC and cout not multiples of 8, H smaller
-# than a tile, B = 1, more than 64 output channels (two passes; K3 and K4)
+# than a tile, B = 1, more than 64 output channels (two passes; the pair's
+# wmma variant keeps y1 in device memory there)
 CONV_SHAPES = {
     "x_3_3": ([256, 64], 64, 2, 512, 512),
     "x_2_3": ([256, 64, 64], 64, 1, 512, 512),
@@ -120,10 +158,12 @@ CONV_SHAPES = {
 # (part channels, cout, B, H, W) of the sm90 variants of K3 and K2 (bf16,
 # W % 8 == 0, every part a multiple of 16 channels): x_1_3 at batch 1, and
 # two parts at W = 72 (a partial second tile) with odd H (even under
-# up_part0) and cout 24 (a padded pass)
+# up_part0) and cout 24 (a padded pass) or 100 (two passes of 64 output
+# channels, the second padded, with their channel sums)
 SM90_NODE_SHAPES = {
     "x_1_3": ([256, 64, 64, 64], 64, 1, 512, 512),
     "w72_odd": ([32, 16], 24, 2, 9, 72),
+    "w72_wide": ([32, 16], 100, 2, 9, 72),
 }
 
 
@@ -236,7 +276,7 @@ def test_conv3x3_sm90_kernel_matches_plain(cuda_device, shape, relu):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("up0", [False, True], ids=["full", "up_part0"])
 @pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
-@pytest.mark.parametrize("shape", [s for s in CONV_SHAPES if s != "wide"])
+@pytest.mark.parametrize("shape", list(CONV_SHAPES))
 def test_decode_pair_kernel_matches_plain(cuda_device, shape, gated, up0,
                                           dtype):
     dt = getattr(torch, dtype)
@@ -300,8 +340,6 @@ def test_conv_kernels_refuse_what_they_cannot_take(cuda_device):
     a = _conv_inputs("wide", torch.float32, cuda_device)
     args = (a["parts"], a["gate_c"], a["sse_kernel"], a["sse_bias"], a["k1"],
             a["s1"], a["b1"], a["k2"], a["s2"], a["b2"])
-    with pytest.raises(ValueError, match="cout"):
-        PK.scse_conv3x3_pair(*args)               # 100 output channels
     half = [p.half() for p in a["parts"]]
     with pytest.raises(TypeError):
         SK.scse_conv3x3_bn_relu(half, *args[1:7])

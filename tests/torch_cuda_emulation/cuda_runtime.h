@@ -56,7 +56,9 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
 
 struct uint4 { unsigned x, y, z, w; };
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 
 typedef int cudaError_t;

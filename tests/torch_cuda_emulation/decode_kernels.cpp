@@ -4,6 +4,7 @@
 namespace dconv {
 alignas(1024) unsigned char smem[256 * 1024];  // the kernels' `extern __shared__`
 }
+unsigned char* emu_smem() { return dconv::smem; }
 #include "conv3x3.cu"
 #include "scse_conv.cu"
 #include "decode_pair.cu"
