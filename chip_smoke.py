@@ -34,7 +34,24 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    images/sec and peak memory, off and under each mode, with the launch
    counts of the run per variant (every K1, K3 and K2 launch sm90); K4, which no
    model calls, is driven through its public function at the decode node's
-   conv2 shape.
+   conv2 shape;
+6. ``test_tta`` at full width: a run directory made by the port alone
+   (``config.json`` of the flagship under ``pair_up``, ``inference_dtype``
+   bf16, and ``checkpoints/best.ckpt``: the seed-0 weights through
+   ``convert.torch_to_flax`` and ``train.checkpoint.save_checkpoint``),
+   loaded by ``load_model_for_inference`` on the card; 3 synthetic
+   fundus-like 2848×4288 images with lesion masks from a numpy seed go
+   through every step of ``test_tta`` but the file decode and encode:
+   ``tta_pass`` (d4 predict + per-image AP and the 19-threshold sweep on the
+   card, batch 2, so the second batch is padded), ``pr_curve_report`` and
+   the device half of the mask export (``masks_to_uint8``). The card
+   machine has no matplotlib, which ``test_tta``'s PR figure needs, so the
+   file leg runs on the CPU tests only. Checks K1 (12) and K2 (4) launches a
+   forward, all sm90; ``mean_auc`` in [0, 1]; thresholds from the sweep's
+   list; uint8 masks in {0, 1} at full size; and ``batch_image_metrics`` of
+   the first batch on the card against the CPU (counts equal, ``ap_sum``
+   within 1e-5 relative). Prints the pass, ``predict`` alone and metrics
+   plus export, with the peak device memory.
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -108,6 +125,9 @@ SOURCES = {
 MODEL_PARAMS = {"encoder_name": "BoTSER50_Axial_Imagenet_3",
                 "decoder_attention_type": "scse", "base_dim": SCALE // 32,
                 "decoder_channels": (256, 128, 64, 32, 16), "classes": 1}
+TTA_IMAGES, TTA_BATCH = 3, 2        # test_tta phase: the 2nd batch is padded
+TTA_MODE = "pair_up"
+AP_SUM_RTOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -744,6 +764,204 @@ def phase_conv3x3_path(device):
     return counts["conv3x3"], by_variant
 
 
+def synthetic_fundus(rng, hw):
+    """A fundus-like uint8 image (circular field of view, smooth colour
+    field, noise, 4 bright blob lesions) and its {0, 1} lesion mask."""
+    import numpy as np
+    h, w = hw
+    yy = np.linspace(-1.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(-1.0, 1.0, w, dtype=np.float32)[None, :]
+    fov = (yy / 0.96) ** 2 + (xx / 0.96) ** 2 < 1.0
+    img = np.empty((h, w, 3), np.float32)
+    img[..., 0] = 120 + 30 * np.sin(3.1 * xx)
+    img[..., 1] = 60 + 20 * np.cos(2.7 * yy)
+    img[..., 2] = 30 + 10 * np.sin(3.1 * (xx + yy))
+    img += rng.standard_normal((h, w, 3), dtype=np.float32) * 8.0
+    mask = np.zeros((h, w), bool)
+    for _ in range(4):
+        by, bx = rng.uniform(-0.5, 0.5, 2)
+        r = rng.uniform(0.03, 0.08)
+        blob = np.exp(-((yy - by) ** 2 + (xx - bx) ** 2) / (2 * r * r))
+        img[..., 0] += 120 * blob
+        img[..., 1] += 110 * blob
+        mask |= blob > 0.4
+    img = np.clip(img * fov[..., None], 0, 255).astype(np.uint8)
+    return img, (mask & fov).astype(np.float32)
+
+
+class ArrayTestSet:
+    """``TestSegmentation`` over arrays in memory: the same samples (GT
+    through ``reference_gt_roundtrip`` at ``scale``) without the file
+    decode."""
+
+    def __init__(self, images, masks, scale):
+        self.images, self.masks, self.scale = images, masks, scale
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        from eyediseasesegmentation_tpu_torch.data.datasets import (
+            reference_gt_roundtrip)
+        img = self.images[i]
+        return {"image": img, "filename": f"IDRiD_{i:02d}.jpg",
+                "ori_h": img.shape[0], "ori_w": img.shape[1],
+                "mask": reference_gt_roundtrip(self.masks[i], self.scale)}
+
+
+def write_run_dir(logdir):
+    """A run directory from the port alone: config.json and the seed-0
+    weights as ``checkpoints/best.ckpt`` in the JAX package's format."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.convert import torch_to_flax
+    from eyediseasesegmentation_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+
+    config = {"model_name": "unetplusplusstar",
+              "model_params": dict(MODEL_PARAMS, pallas_tail=TTA_MODE,
+                                   fast_min_res=FAST_MIN_RES),
+              "scale_size": SCALE, "lesion_type": "EX",
+              "dataset_name": "IDRiD", "inference_dtype": "bfloat16"}
+    (logdir / "checkpoints").mkdir(parents=True)
+    (logdir / "config.json").write_text(json.dumps(config))
+    state = build_model(torch.float32, "cpu").state_dict()
+    save_checkpoint(logdir / "checkpoints" / "best.ckpt",
+                    {"model_state_dict": torch_to_flax(state),
+                     "metric": 0.0, "epoch": 0})
+    return state
+
+
+def phase_test_tta(device, card):
+    """``test_tta``'s steps at full width on the card, files aside."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from eyediseasesegmentation_tpu_torch.analysis.aucpr import (
+        pr_curve_report)
+    from eyediseasesegmentation_tpu_torch.data.datasets import (
+        batch_iterator, prefetch)
+    from eyediseasesegmentation_tpu_torch.infer.tta import (
+        TTAPredictor, load_model_for_inference, masks_to_uint8, tta_pass)
+    from eyediseasesegmentation_tpu_torch.ops import metrics as M
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        logdir = Path(tmp) / "models" / "IDRiD" / "EX" / "smoke"
+        state = write_run_dir(logdir)
+        model, cfg = load_model_for_inference(logdir, device=device)
+    loaded = model.state_dict()
+    check(all(torch.equal(loaded[k].cpu(), v) for k, v in state.items()),
+          "test_tta: the checkpoint did not round-trip the weights")
+    check(cfg["model_params"]["pallas_tail"] == TTA_MODE
+          and model.dtype == torch.bfloat16,
+          f"test_tta: run config {cfg['model_params']} / {model.dtype}")
+    del state, loaded
+    rng = np.random.default_rng(SEED + 6)
+    pairs = [synthetic_fundus(rng, FULL_HW) for _ in range(TTA_IMAGES)]
+    ds = ArrayTestSet([p[0] for p in pairs], [p[1] for p in pairs], SCALE)
+    predictor = TTAPredictor(model, cfg, tta="d4", ori_hw=FULL_HW)
+
+    def run_pass():
+        return tta_pass(predictor,
+                        prefetch(batch_iterator(ds, TTA_BATCH, workers=2)))
+
+    # a first pass takes cuDNN's tuning at 16 views (the bench tuned 24)
+    t_first = run_pass()[2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                               # the main path starts here
+    totals, prob_batches, t_pass = run_pass()
+    counts, by_variant = read_counts(), read_variant_counts()  # ... ends
+    peak_pass = torch.cuda.max_memory_allocated()
+    forwards = len(prob_batches)
+    check(forwards == 2 and [len(f) for _, f in prob_batches] == [2, 1],
+          f"test_tta: batches {[len(f) for _, f in prob_batches]}")
+    check(counts == expected_counts(TTA_MODE, forwards),
+          f"test_tta: launches {counts} in {forwards} forwards, expected "
+          f"{expected_counts(TTA_MODE, forwards)}")
+    check_variants("test_tta", by_variant, "sm90")
+    mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
+    check(np.isfinite(mean_auc) and 0.0 <= mean_auc <= 1.0,
+          f"test_tta: mean_auc {mean_auc}")
+    check(float(totals["px"]) == TTA_IMAGES * FULL_HW[0] * FULL_HW[1],
+          f"test_tta: {totals['px']} pixels counted")
+    thresholds = pr_curve_report(totals["tp"], totals["ap"], totals["pp"],
+                                 "smoke", figure_dir=None)
+    allowed = {float(t) for t in M.THRESH_LIST}
+    check(all(thresholds[k] in allowed for k in (
+        "optimal_threshold", "optimal_threshold_1", "optimal_threshold_2")),
+        f"test_tta: thresholds {thresholds}")
+
+    # the device half of the export, fetched as the file writer would
+    optim = thresholds["optimal_threshold_2"]
+    for probs, fnames in prob_batches:
+        check(tuple(probs.shape) == (TTA_BATCH, *FULL_HW)
+              and bool(torch.isfinite(probs).all()),
+              f"test_tta: probabilities {tuple(probs.shape)}")
+        m8, p8 = (t.cpu().numpy() for t in masks_to_uint8(probs, optim,
+                                                          True))
+        check(m8.dtype == np.uint8 and p8.dtype == np.uint8
+              and m8.shape[1:] == FULL_HW
+              and set(np.unique(m8[:len(fnames)]).tolist()) <= {0, 1},
+              f"test_tta: masks {m8.dtype} {m8.shape}")
+
+    # batch_image_metrics of the first batch: the card against the CPU
+    probs0 = prob_batches[0][0]
+    masks0 = torch.from_numpy(np.stack([ds[i]["mask"] for i in
+                                        range(TTA_BATCH)]).astype(np.uint8))
+    with torch.inference_mode():
+        gpu = M.batch_image_metrics(probs0, masks0.to(device), TTA_BATCH)
+        cpu = M.batch_image_metrics(probs0.cpu(), masks0, TTA_BATCH)
+    for k in ("tp", "ap", "pp", "tn", "px", "ap_count"):
+        check(torch.equal(gpu[k].cpu(), cpu[k]),
+              f"test_tta: {k} on the card {gpu[k].tolist()} against the CPU "
+              f"{cpu[k].tolist()}")
+    rel = abs(float(gpu["ap_sum"]) - float(cpu["ap_sum"])) / max(
+        abs(float(cpu["ap_sum"])), 1e-30)
+    check(rel <= AP_SUM_RTOL, f"test_tta: ap_sum {float(gpu['ap_sum'])} on "
+                              f"the card, {float(cpu['ap_sum'])} on the CPU")
+
+    # predict alone, then metrics plus the export's device half, per pass
+    batches = list(batch_iterator(ds, TTA_BATCH))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        predictor.predict(b["image"])
+    torch.cuda.synchronize()
+    t_predict = time.perf_counter() - t0
+    masks = [torch.from_numpy(b["mask"].astype(np.uint8)).to(device)
+             for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for (probs, _), m, b in zip(prob_batches, masks, batches):
+            stats = M.batch_image_metrics(probs, m, b["n_valid"])
+            fetched = [v.cpu() for v in stats.values()]
+            fetched += [t.cpu() for t in masks_to_uint8(probs, optim, True)]
+    torch.cuda.synchronize()
+    t_metrics = time.perf_counter() - t0
+    peak_metrics = torch.cuda.max_memory_allocated() - base
+    print(f"test_tta d4 bf16 pallas_tail={TTA_MODE}: {TTA_IMAGES} images of "
+          f"{FULL_HW[0]}x{FULL_HW[1]} in batches of {TTA_BATCH}: pass "
+          f"{t_pass:.4f} s ({TTA_IMAGES / t_pass:.4f} images/sec; predict + "
+          f"metrics, host batching and GT round trip included, one batch in "
+          f"flight; the first pass {t_first:.4f} s); predict alone {t_predict:.4f} s; metrics + export "
+          f"device half {t_metrics:.4f} s; peak memory {peak_pass / 2**30:.3f}"
+          f" GiB in the pass (probabilities of every batch resident), "
+          f"metrics {peak_metrics / 2**30:.3f} GiB above what was resident; "
+          f"mean_auc {mean_auc:.6f}, thresholds {thresholds}; card-vs-CPU "
+          f"ap_sum rel {rel:.2e}; launches {counts} by variant "
+          f"{by_variant['axial_attention']} / {by_variant['decode_pair']} "
+          f"(K1 / K2); phase {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+    del model, predictor, prob_batches, masks
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_profile(device, modes):
     """Device time by op of one ``predict`` of the bench workload, after two
     warm-ups, for each mode."""
@@ -853,6 +1071,7 @@ def main(argv=None) -> int:
         phase_slice(device)
         phase_routes(device)
         runs = {mode: phase_bench(device, mode) for mode in TAIL_MODES}
+        phase_test_tta(device, card)
         k4_launches, k4_variants = phase_conv3x3_path(device)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -1,4 +1,4 @@
-"""Weights of the JAX package → the port's ``state_dict``.
+"""Weights of the JAX package ↔ the port's ``state_dict``.
 
 The port's submodules carry the flax scope names, so a leaf's torch key is its
 flax path with the module names kept, a short table for flax's auto-names,
@@ -13,14 +13,16 @@ and one layout rule per leaf kind:
   ``pos_enc/relative`` keep the layout the attention op takes;
 * scSE's ``sse_kernel`` / ``sse_bias`` → its ``sse`` 1×1 conv.
 
-Loading the JAX package's msgpack checkpoints needs flax and is not ported
-yet (ROADMAP.md); this takes the variables as nested dicts of arrays.
+``flax_to_torch`` takes the variables as nested dicts of arrays, as the
+port's ``train.checkpoint.load_checkpoint`` reads them from a JAX
+checkpoint; ``torch_to_flax`` is its inverse, so a checkpoint the port
+writes with ``save_checkpoint`` loads in the JAX package.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Iterator, List, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -94,6 +96,8 @@ def flax_to_torch(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
         if collection not in ("params", "batch_stats"):
             raise KeyError(f"unexpected flax collection '{collection}'")
         for path, value in _leaves(tree):
+            if isinstance(value, torch.Tensor):   # a bfloat16 leaf
+                value = value.float().numpy()
             parts, a = _torch_key(collection, path,
                                   np.asarray(value, dtype=np.float32))
             key = ".".join(parts)
@@ -121,3 +125,74 @@ def load_flax(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
             f"{[(k, tuple(want[k].shape), tuple(state[k].shape)) for k in shapes[:10]]}")
     model.load_state_dict(state)
     return model
+
+
+_FLAX_NAMES = {v: k for k, v in AUTO_NAMES.items() if v is not None}
+# the port's modules that flax wraps in an auto-named scope of their own
+# (Attention('scse') holds its SCSEAttention as SCSEAttention_0)
+_SCSE = "SCSEAttention_0"
+_WRAPPED = {"cse_reduce", "cse_expand"}
+
+
+def _flax_scopes(mod: List[str]) -> List[str]:
+    out = []
+    for name in mod:
+        if name in _WRAPPED:
+            out.append(_SCSE)
+        out.append(_FLAX_NAMES.get(name, name))
+    return out
+
+
+def torch_to_flax(model_or_state_dict: Union[torch.nn.Module, Mapping]
+                  ) -> Dict[str, Dict[str, Any]]:
+    """The inverse of :func:`flax_to_torch`: ``{"params", "batch_stats"}``
+    as nested dicts of fp32 numpy arrays in the JAX layout (HWIO conv and
+    (in, out) Dense kernels, flax's auto-names, the kept leaves as they
+    are, scSE's ``sse`` as ``sse_kernel`` / ``sse_bias``, the axial norms
+    as ``<name>_scale`` ... leaves of their attention module). An axial
+    norm is told apart from a BatchNorm module by its parent: the module
+    that holds ``to_qkv`` or ``to_kq``. Raises on a key no rule covers."""
+    state = (model_or_state_dict.state_dict()
+             if isinstance(model_or_state_dict, torch.nn.Module)
+             else model_or_state_dict)
+    keys = [k.split(".") for k in state]
+    attention = {tuple(k[:-1]) for k in keys if k[-1] in ("to_qkv", "to_kq")}
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for parts, value in zip(keys, state.values()):
+        *mod, leaf = parts
+        a = value.detach().to("cpu", torch.float32).numpy()
+        norm = len(mod) > 0 and tuple(mod[:-1]) in attention
+        if leaf in _KEPT:
+            collection, path = "params", mod + [leaf]
+        elif mod and mod[-1] == "sse" and leaf in ("weight", "bias"):
+            collection = "params"
+            path = mod[:-1] + [_SCSE, "sse_kernel" if leaf == "weight"
+                               else "sse_bias"]
+        elif norm and leaf in ("weight", "bias", "running_mean",
+                               "running_var"):
+            collection = "batch_stats" if leaf.startswith("running") else \
+                "params"
+            suffix = {"weight": "scale", "bias": "bias",
+                      "running_mean": "mean", "running_var": "var"}[leaf]
+            path = mod[:-1] + [f"{mod[-1]}_{suffix}"]
+        elif leaf == "weight" and a.ndim in (1, 2, 4):
+            collection = "params"
+            path = mod + ["scale" if a.ndim == 1 else "kernel"]
+        elif leaf == "bias":
+            collection, path = "params", mod + ["bias"]
+        elif leaf in ("running_mean", "running_var"):
+            collection, path = "batch_stats", mod + [leaf[len("running_"):]]
+        else:
+            raise KeyError(f"no conversion rule for torch key "
+                           f"'{'.'.join(parts)}' of shape {a.shape}")
+        if path[-1] in ("kernel", "sse_kernel"):
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        *scopes, name = path
+        node = out[collection]
+        for s in _flax_scopes(scopes):
+            node = node.setdefault(s, {})
+        if name in node:
+            raise KeyError(f"two torch keys map to flax leaf "
+                           f"{collection}/{'/'.join(path)}")
+        node[name] = np.ascontiguousarray(a)
+    return out

@@ -1,43 +1,132 @@
-"""Whole-image test-time-augmentation predictor (torch port).
+"""Whole-image test-time-augmentation inference (torch port).
 
-Counterpart of ``TTAPredictor`` in ``eyediseasesegmentation_tpu/infer/tta.py``
-for the ``d4`` and ``none`` aliases: the V views of a batch run as one
-forward, their logits are inverted and averaged, and one sigmoid is applied
-(sigmoid of the mean, not the mean of sigmoids). The other aliases, the
-metrics pipeline (``test_tta``) and tiled inference are not ported yet
-(ROADMAP.md).
+Counterpart of ``eyediseasesegmentation_tpu/infer/tta.py`` for whole-image
+mode: ``load_model_for_inference`` rebuilds a model from a run directory
+(``config.json`` and an msgpack checkpoint in the JAX package's format);
+``TTAPredictor`` runs the V views of a batch (``d4``, ``flip``, ``hflip``,
+``none``) as one forward, inverts and averages their logits and applies one
+sigmoid (sigmoid of the mean, not the mean of sigmoids); ``test_tta`` runs a
+test directory through it once, scores it on the device (per-image AP or
+ROC-AUC and the 19-threshold sweep), picks the optimal thresholds and
+exports uint8 masks.
+
+``test_tta`` is made of two pieces a caller can drive without files:
+``tta_pass`` (predict + metrics over ``batch_iterator``-shaped batches) and
+``masks_to_uint8`` (the device half of the mask export). The ``multiscale``,
+``five_crop`` and ``ten_crop`` aliases and tiled inference (``tta_patches``)
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+import json
+import logging
+import time
+from collections import deque
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import models as zoo
-from ..data import get_transform
+from ..convert import load_flax
+from ..data import TestSegmentation, get_datapath, get_transform
+from ..data.datasets import batch_iterator, prefetch
 from ..ops import image as I
+from ..ops import metrics as M
+from ..train.checkpoint import load_checkpoint
+from ..utils import save_output
+
+logger = logging.getLogger("eyediseasesegmentation_tpu_torch")
+
+
+# ---------------------------------------------------------------------------
+# TTA view families: (V, B, H, W, C) stacks and their inverses
+# ---------------------------------------------------------------------------
+
+def _flip_views(img):  # ttach HFlip x VFlip compose: 4 combinations
+    return torch.stack([img, I.hflip(img), I.vflip(img),
+                        I.vflip(I.hflip(img))], 0)
+
+
+def _flip_inverse(views):
+    return torch.stack([views[0], I.hflip(views[1]), I.vflip(views[2]),
+                        I.hflip(I.vflip(views[3]))], 0)
+
+
+def _hflip_views(img):
+    return torch.stack([img, I.hflip(img)], 0)
+
+
+def _hflip_inverse(views):
+    return torch.stack([views[0], I.hflip(views[1])], 0)
+
 
 TTA_FAMILIES: Dict[str, Tuple[Callable, Callable, int]] = {
     "d4": (I.d4_views, I.d4_inverse, 8),
+    "flip": (_flip_views, _flip_inverse, 4),
+    "hflip": (_hflip_views, _hflip_inverse, 2),
     "none": (lambda x: x[None], lambda v: v, 1),
 }
 
+
+# ---------------------------------------------------------------------------
+# Model (re)construction from a run directory
+# ---------------------------------------------------------------------------
+
+def load_model_for_inference(logdir, best: bool = True,
+                             dtype: torch.dtype = torch.bfloat16,
+                             device=None) -> Tuple[torch.nn.Module, dict]:
+    """Rebuild the model of ``<logdir>/config.json`` with the inference
+    demotions and load ``checkpoints/best.ckpt`` (``last.ckpt`` when not
+    ``best``). Returns (model, config).
+
+    ``inference_dtype`` in config.json overrides ``dtype``. The model is
+    built on ``device``: ``None`` means the GPU and raises without one, as
+    ``models.get_model`` does. ``model_params`` go through as they are:
+    ``pallas_tail`` selects the kernel routes here even where
+    ``fast_inference`` is false, which in the JAX package turns them off
+    (a deliberate divergence, ROADMAP.md section 3)."""
+    logdir = Path(logdir)
+    with open(logdir / "config.json") as f:
+        config = json.load(f)
+    if config.get("inference_dtype"):
+        dtype = getattr(torch, config["inference_dtype"])
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"inference_dtype {config['inference_dtype']!r}"
+                             " is not a torch dtype")
+    model = zoo.get_model(config["model_name"],
+                          dict(config.get("model_params") or {}),
+                          training=False, dtype=dtype, device=device)
+    ckpt = load_checkpoint(logdir / "checkpoints"
+                           / ("best.ckpt" if best else "last.ckpt"))
+    state = ckpt["model_state_dict"]
+    load_flax(model, {"params": state["params"],
+                      "batch_stats": state.get("batch_stats", {})})
+    return model, config
+
+
+# ---------------------------------------------------------------------------
+# The predictor
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class TTAPredictor:
     """``predict(raw_images)`` maps (B, H0, W0, 3) raw images in [0, 255] to
     (B, H0, W0) probabilities at the original resolution: resize + pad +
     normalize → V views as one batched forward → inverse views → mean →
-    sigmoid → crop the pad → resize back. The model's device and ``dtype``
-    are used."""
+    sigmoid → crop the pad → resize back. With ``resize=False`` (vessel
+    mode, reference tta_vessel.py:76) the images are only normalized: they
+    come padded to a square and leave at that size. The model's device and
+    ``dtype`` are used."""
 
     model: torch.nn.Module
     config: Dict[str, Any]
     tta: str = "d4"
     ori_hw: Optional[Tuple[int, int]] = None
+    resize: bool = True
 
     def __post_init__(self):
         if self.tta not in TTA_FAMILIES:
@@ -72,6 +161,9 @@ class TTAPredictor:
 
     def _predict(self, raw_images: torch.Tensor) -> torch.Tensor:
         raw_images = raw_images.to(torch.float32)
+        if not self.resize:
+            prep = self.transform.preprocessing_fn or (lambda x: x)
+            return self._tta_probs(prep(raw_images))
         probs = self._tta_probs(self.transform.test(raw_images))
         ori_h, ori_w = self.ori_hw or (raw_images.shape[1], raw_images.shape[2])
         crop_hw = I.longest_max_size_shape(ori_h, ori_w, self.scale_size)
@@ -80,9 +172,11 @@ class TTAPredictor:
 
     def predict(self, raw_images) -> torch.Tensor:
         if isinstance(raw_images, np.ndarray):
+            if not raw_images.flags.writeable:   # e.g. a decoded image
+                raw_images = raw_images.copy()
             raw_images = torch.from_numpy(raw_images)
         raw_images = raw_images.to(self.device)
-        if self.ori_hw is not None:
+        if self.resize and self.ori_hw is not None:
             got = tuple(raw_images.shape[1:3])
             if got != tuple(self.ori_hw):
                 raise ValueError(
@@ -92,3 +186,160 @@ class TTAPredictor:
                     "image path; run images of one size per pass.")
         with torch.inference_mode():
             return self._predict(raw_images)
+
+
+# ---------------------------------------------------------------------------
+# Whole-image inference pipeline (reference test_tta, tta.py:56-148)
+# ---------------------------------------------------------------------------
+
+def _str2bool(v) -> bool:
+    return str(v).lower() in ("true", "1", "yes")
+
+
+def tta_pass(predictor: TTAPredictor, batches: Iterable[dict],
+             score: str = "ap"
+             ) -> Tuple[Dict[str, np.ndarray], List[Tuple[torch.Tensor,
+                                                          List[str]]], float]:
+    """One prediction pass over ``batch_iterator``-shaped batches (``image``
+    uint8 (B, H, W, 3), ``mask`` (B, H, W), ``filename``, ``n_valid``), with
+    ``batch_image_metrics`` on each batch's probabilities on their device.
+    The counters come to the host one batch behind and add up there in fp32,
+    as in the JAX package. Returns (totals, [(device probabilities (B, H,
+    W), the batch's real file names)], seconds of the pass)."""
+    totals: Dict[str, np.ndarray] = {}
+    prob_batches: List[Tuple[torch.Tensor, List[str]]] = []
+
+    def _materialize(entry):
+        probs, stats, fnames = entry
+        for k, v in stats.items():
+            totals[k] = totals.get(k, 0) + v.cpu().numpy()
+        prob_batches.append((probs, fnames))
+
+    t_start = time.perf_counter()
+    pending: deque = deque()
+    for batch in batches:
+        probs = predictor.predict(batch["image"])
+        # GT ships uint8 ({0, 1} exact, 4x less host-to-device)
+        masks = torch.from_numpy(batch["mask"].astype(np.uint8)).to(
+            probs.device)
+        with torch.inference_mode():
+            stats = M.batch_image_metrics(probs, masks, batch["n_valid"],
+                                          score=score)
+        pending.append((probs, stats,
+                        list(batch["filename"][:batch["n_valid"]])))
+        if len(pending) > 1:
+            _materialize(pending.popleft())
+    while pending:
+        _materialize(pending.popleft())
+    return totals, prob_batches, time.perf_counter() - t_start
+
+
+def masks_to_uint8(probs: torch.Tensor, optim: float, with_probs: bool
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The device half of the mask export: ``p > t`` and (``with_probs``)
+    ``p * 255`` as uint8, on the device of ``probs``. The compare runs in
+    fp32 and the cast truncates toward zero, as the JAX package's does."""
+    t = torch.tensor(optim, dtype=torch.float32, device=probs.device)
+    m8 = (probs > t).to(torch.uint8)
+    p8 = (probs * 255.0).to(torch.uint8) if with_probs else None
+    return m8, p8
+
+
+def export_masks_on_device(prob_batches, optim, out_path, prob_path=None):
+    """Binarize (and with ``prob_path`` quantize) predictions on their
+    device and write the uint8 results, one batch behind the device.
+    ``prob_batches``: iterable of (probabilities (B, H, W) or (H, W), [output
+    file names]); the first len(names) images of a batch are written."""
+    pending: deque = deque()
+
+    def _save(entry):
+        m8, p8, fnames = entry
+        m = m8.cpu().numpy()
+        q = None if p8 is None else p8.cpu().numpy()
+        for i, name in enumerate(fnames):
+            if q is not None:
+                save_output(q[i], Path(prob_path) / name)
+            save_output(m[i], Path(out_path) / name)
+
+    for probs, fnames in prob_batches:
+        if probs.ndim == 2:
+            probs = probs[None]
+        pending.append((*masks_to_uint8(probs, optim, prob_path is not None),
+                        fnames))
+        if len(pending) > 1:
+            _save(pending.popleft())
+    while pending:
+        _save(pending.popleft())
+
+
+def test_tta(logdir, config: Dict[str, Any], args: Dict[str, Any],
+             batch_size: int = 2, metric: str = "pr", resize: bool = True,
+             device=None) -> Dict[str, Any]:
+    """One TTA pass over the test directory, the AUC, the threshold search
+    and the mask export.
+
+    ``metric='pr'`` is the lesion path (mean per-image AP + PR sweep,
+    tta.py:123-137); ``metric='roc'`` with ``resize=False`` the vessel path
+    (AUC-ROC, no whole-image resize, tta_vessel.py:76,112-121). ``device``:
+    where the model runs, as in :func:`load_model_for_inference`. Returns
+    {'mean_auc', 'thresholds', 'out_dir'} and writes masks to
+    outputs/<ds>/tta/<lesion>/<exp>/ (and prob_image/ with createprob)."""
+    logdir = Path(logdir)
+    model, run_cfg = load_model_for_inference(
+        logdir, best=_str2bool(args.get("best", "true")), device=device)
+    cfg = {**run_cfg, **config}
+
+    img_paths, mask_paths = get_datapath(Path(cfg["test_img_path"]),
+                                         Path(cfg["test_mask_path"]),
+                                         cfg.get("lesion_type", "EX"))
+    ds = TestSegmentation(
+        img_paths, mask_paths, gray=cfg.get("gray", False),
+        ben_transform=cfg.get("use_ben_transform", False),
+        # the lesion path scores against the reference's GT geometry
+        # (reference_gt_roundtrip); the vessel path uses masks as they are
+        metric_roundtrip_scale=(int(cfg.get("scale_size", 1024))
+                                if resize else None))
+    first = ds[0]
+    predictor = TTAPredictor(model, cfg, tta=args.get("tta", "d4"),
+                             ori_hw=(first["ori_h"], first["ori_w"]),
+                             resize=resize)
+    totals, prob_batches, elapsed = tta_pass(
+        predictor,
+        prefetch(batch_iterator(ds, batch_size, shuffle=False,
+                                workers=min(4, batch_size))),
+        score="ap" if metric == "pr" else "roc")
+    n_images = sum(len(f) for _, f in prob_batches)
+    mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
+    logger.info("MEAN-AUC %.5f | %d images in %.1fs incl. decode+metrics "
+                "(%.2f img/s)", mean_auc, n_images, elapsed,
+                n_images / max(elapsed, 1e-9))
+
+    from ..analysis.aucpr import pr_curve_report, roc_curve_report
+    out_root = Path(cfg.get("out_dir", "outputs")) / cfg["dataset_name"]
+    figure_dir = out_root / "figures" / cfg["lesion_type"]
+    if metric == "pr":
+        thresholds = pr_curve_report(totals["tp"], totals["ap"], totals["pp"],
+                                     logdir.name, figure_dir=figure_dir)
+    else:
+        thresholds = roc_curve_report(totals["tp"], totals["ap"],
+                                      totals["tn"], totals["px"], logdir.name,
+                                      figure_dir=figure_dir, pp=totals["pp"])
+    optim = thresholds["optimal_threshold_2"]  # F-max (tta.py:137)
+    logger.info("optimal thresholds: %s", thresholds)
+
+    out_path = out_root / "tta" / cfg["lesion_type"] / logdir.name
+    out_path.mkdir(parents=True, exist_ok=True)
+    prob_path = None
+    if _str2bool(args.get("createprob", "false")):
+        prob_path = (out_root / "tta" / cfg["lesion_type"] / "prob_image"
+                     / logdir.name)
+        prob_path.mkdir(parents=True, exist_ok=True)
+    export_masks_on_device(
+        ((p, [Path(n).stem + ".jpg" for n in fnames])
+         for p, fnames in prob_batches),
+        optim, out_path, prob_path)
+    return {"mean_auc": mean_auc, "thresholds": thresholds,
+            "out_dir": str(out_path)}
+
+
+test_tta.__test__ = False  # keep pytest from collecting the API function

@@ -1,11 +1,11 @@
-"""Port parity: the TTA predictor (d4 and none) against the JAX
-``TTAPredictor``.
+"""Port parity: the TTA predictor (d4, none, flip, hflip, and d4 in vessel
+mode) against the JAX ``TTAPredictor``.
 
 Two raw uint8 images of 96×144 at scale_size 64 go through resize + pad +
 normalize, the views of the fp32 flagship (shared with
-test_torch_flagship.py), the logit merge and the resize back. Probabilities
-are held to 1e-4 (the flagship's own tolerance; the sigmoid does not widen
-it).
+test_torch_flagship.py), the logit merge and the resize back; in vessel mode
+(``resize=False``) two 64×64 images are only normalized. Probabilities are
+held to 1e-4 (the flagship's own tolerance; the sigmoid does not widen it).
 """
 
 import numpy as np
@@ -27,22 +27,29 @@ def _raw(seed):
     return rng.randint(0, 256, (2, 96, 144, 3)).astype(np.uint8)
 
 
-@pytest.mark.parametrize("tta", ["d4", "none"])
-def test_predictor_matches_jax(tta):
+@pytest.mark.parametrize("tta,resize", [
+    pytest.param("d4", True, id="d4"),
+    pytest.param("none", True, id="none"),
+    pytest.param("flip", True, id="flip"),
+    pytest.param("hflip", True, id="hflip"),
+    pytest.param("d4", False, id="d4_no_resize")])
+def test_predictor_matches_jax(tta, resize):
     model, variables, _ = jax_flagship()
-    raw = _raw(0)
-    jp = JTTAPredictor(model, variables, CONFIG, tta=tta, ori_hw=(96, 144))
+    raw = _raw(0) if resize else _raw(0)[:, :64, :64]
+    hw = raw.shape[1:3]
+    jp = JTTAPredictor(model, variables, CONFIG, tta=tta, ori_hw=hw,
+                       resize=resize)
     want = np.asarray(jp._predict_jit(jnp.asarray(raw)))
-    got = TTAPredictor(torch_flagship(), CONFIG, tta=tta,
-                       ori_hw=(96, 144)).predict(raw)
-    assert got.shape == want.shape == (2, 96, 144)
+    got = TTAPredictor(torch_flagship(), CONFIG, tta=tta, ori_hw=hw,
+                       resize=resize).predict(raw)
+    assert got.shape == want.shape == (2, *hw)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
 def test_unported_aliases_and_mixed_sizes_raise():
     model = torch_flagship()
-    for alias in ("multiscale", "flip", "hflip", "five_crop", "ten_crop"):
+    for alias in ("multiscale", "five_crop", "ten_crop"):
         with pytest.raises(NotImplementedError):
             TTAPredictor(model, CONFIG, tta=alias)
     predictor = TTAPredictor(model, CONFIG, tta="d4", ori_hw=(96, 144))
