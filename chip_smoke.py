@@ -57,8 +57,9 @@ Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 ``--routes`` runs only the bf16 route check and prints its ratios without
 holding them to a bound (how the bound's baseline was measured, on the
-previous kernels). Needs a CUDA device and the repository beside this file;
-imports no JAX.
+previous kernels). ``--profile train`` prints the device time by op of one
+full-width train step (forward, backward and the optimizer) instead.
+Needs a CUDA device and the repository beside this file; imports no JAX.
 """
 
 from __future__ import annotations
@@ -128,6 +129,28 @@ MODEL_PARAMS = {"encoder_name": "BoTSER50_Axial_Imagenet_3",
 TTA_IMAGES, TTA_BATCH = 3, 2        # test_tta phase: the 2nd batch is padded
 TTA_MODE = "pair_up"
 AP_SUM_RTOL = 1e-5
+# the train phase: tools/bench_train.py's configuration
+TRAIN_CONFIG = {
+    "dataset_name": "IDRiD", "lesion_type": "EX", "augmentation": "advanced",
+    "scale_size": SCALE, "batch_size": 2, "learning_rate": 1e-3,
+    "weight_decay": 1e-5, "is_fp16": True, "model_name": "unetplusplusstar",
+    "model_params": {"encoder_name": "BoTSER50_Axial_Imagenet_3",
+                     "decoder_attention_type": "scse",
+                     "base_dim": SCALE // 32, "classes": 1},
+    "criterion": {"bce": 0.8, "log_dice": 0.2}, "pos_weights": [500.0],
+    "optimizer": "adamw", "num_workers": 2, "tensorboard": False}
+TRAIN_WARMUP, TRAIN_STEPS = 1, 8
+PARITY_SIZE = 128                   # card against CPU: base_dim 4
+TRAIN_LOSS_RTOL = 1e-4
+# fp32 gradients of the whole network carry rounding noise of a median few
+# 1e-3 of a leaf's max (tests/test_torch_train_step.py measures it against
+# an fp64 run); held as the CPU tests hold the port to JAX
+TRAIN_GRAD_LEAF, TRAIN_GRAD_FLOOR, TRAIN_GRAD_MEDIAN = 1e-1, 1e-3, 5e-2
+# in fp64 the card and the CPU compute the same gradients to 1e-3 of every
+# leaf's max; the floor covers leaves whose exact gradient vanishes by an
+# invariance (an attention norm's bias), which are rounding noise
+FP64_LOSS_RTOL, FP64_GRAD_LEAF, FP64_GRAD_FLOOR = 1e-10, 1e-3, 1e-9
+TREE_IMAGES = 5                     # train_model: 4 train, 1 val
 
 
 class SmokeFailure(Exception):
@@ -962,6 +985,320 @@ def phase_test_tta(device, card):
     return counts
 
 
+def small_trainer(device):
+    """The card-vs-CPU parity's trainer: the flagship at base_dim 4, fp32,
+    augmentation none, seed-0 weights, every DropBlock off."""
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.models.modules.layers import (
+        DropBlock2d)
+    from eyediseasesegmentation_tpu_torch.train.trainer import Trainer
+
+    cfg = dict(TRAIN_CONFIG, scale_size=PARITY_SIZE, is_fp16=False,
+               augmentation="none", model_params=dict(
+                   TRAIN_CONFIG["model_params"], base_dim=PARITY_SIZE // 32))
+    trainer = Trainer(cfg, device=device)
+    zoo.init_random(trainer.model, torch.Generator().manual_seed(SEED))
+    for mod in trainer.model.modules():
+        if isinstance(mod, DropBlock2d):
+            mod.drop_prob = 0.0
+    return trainer
+
+
+def grads_fp64(trainer, images, masks):
+    """The small trainer's loss and gradients of one step's forward and
+    backward in fp64 (weights, inputs, statistics, softmax and loss)."""
+    import torch
+    model = trainer.model.double()
+    for mod in model.modules():
+        if hasattr(mod, "dtype"):
+            mod.dtype = torch.float64
+    model.train()
+    dev = trainer.device
+    x = trainer.transform.test(torch.from_numpy(images).to(dev).double())
+    m4 = torch.from_numpy(masks).to(dev).double()[:, None]
+    loss = trainer.compute_loss(model(x.permute(0, 3, 1, 2)), m4)[0]
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().cpu()
+                         for n, p in model.named_parameters()}
+
+
+def hold_grads(tag, got, want, leaf_tol, floor):
+    """Every gradient leaf within max(leaf_tol · its max, floor · the
+    largest); returns (median |Δ| / leaf max, worst share of a bound, the
+    leaf it was, leaves within 1e-3 of their max)."""
+    import numpy as np
+    check(set(got) == set(want), f"{tag}: gradient leaves differ")
+    scale = max(g.abs().max().item() for g in want.values())
+    rels, worst, tight = [], (0.0, ""), 0
+    for k, w in want.items():
+        err = (got[k] - w).abs().max().item()
+        top = w.abs().max().item()
+        bound = max(leaf_tol * top, floor * scale)
+        check(err <= bound, f"{tag}: grad {k} err {err} > {bound}")
+        worst = max(worst, (err / bound, k))
+        tight += err <= 1e-3 * top
+        rels.append(err / top if top > 0 else 0.0)
+    return float(np.median(rels)), worst[0], worst[1], tight
+
+
+def phase_train_parity(device):
+    """One train step of the small flagship on the card against the same
+    step on the CPU: ``train_step`` in fp32, and its forward and backward
+    in fp64, where rounding no longer hides a difference."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 7)
+    images = rng.integers(0, 256, (2, PARITY_SIZE, PARITY_SIZE, 3),
+                          dtype=np.uint8)
+    masks = (rng.random((2, PARITY_SIZE, PARITY_SIZE)) < 0.1).astype(
+        np.uint8)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    for where in ("cpu", device):
+        trainer = small_trainer(where)
+        reset_counts()
+        m = trainer.train_step(images, masks, torch.Generator(), 1e-3)
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in trainer.model.named_parameters()}
+        trainer = small_trainer(where)
+        exact = grads_fp64(trainer, images, masks)
+        counts = read_counts()
+        check(not any(counts.values()),
+              f"train parity on {where}: kernel launches {counts}")
+        runs[str(where)] = (float(m["loss"]), grads, *exact)
+        del trainer
+    torch.backends.cudnn.benchmark = benchmark
+    want, got = runs["cpu"], runs[str(device)]
+    line = [f"train parity {PARITY_SIZE}² b=2 base_dim={PARITY_SIZE // 32}, "
+            "card against CPU:"]
+    for tag, i, rtol, leaf, floor, med_tol in (
+            ("fp32", 0, TRAIN_LOSS_RTOL, TRAIN_GRAD_LEAF, TRAIN_GRAD_FLOOR,
+             TRAIN_GRAD_MEDIAN),
+            ("fp64", 2, FP64_LOSS_RTOL, FP64_GRAD_LEAF, FP64_GRAD_FLOOR,
+             None)):
+        rel_loss = abs(got[i] - want[i]) / abs(want[i])
+        median, worst, leaf_name, tight = hold_grads(
+            f"train parity {tag}", got[i + 1], want[i + 1], leaf, floor)
+        line.append(f"{tag} loss {got[i]:.9f} / {want[i]:.9f} (rel "
+                    f"{rel_loss:.2e} <= {rtol}), grads median rel "
+                    f"{median:.2e}, worst {worst:.2f} of its bound "
+                    f"({leaf_name}), {tight} of {len(want[i + 1])} leaves "
+                    "within 1e-3 of their max;")
+        check(rel_loss <= rtol, f"train parity {tag}: loss rel {rel_loss}")
+        check(med_tol is None or median <= med_tol,
+              f"train parity {tag}: median {median}")
+    print(" ".join(line) + " no kernel launched", flush=True)
+    torch.cuda.empty_cache()
+
+
+def full_trainer(device):
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.benchmark = True
+    trainer = Trainer(dict(TRAIN_CONFIG), device=device)
+    zoo.init_random(trainer.model, torch.Generator().manual_seed(SEED))
+    return trainer
+
+
+def train_batch():
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (2, SCALE, SCALE, 3), dtype=np.uint8)
+    masks = (rng.random((2, SCALE, SCALE)) < 0.1).astype(np.uint8)
+    return images, masks
+
+
+def phase_train(device, card):
+    """The full-width train step (no kernel launched), then one eval_step on
+    the same model (K1 on sm90). Returns K1's launches in the eval_step."""
+    import math
+
+    import torch
+    from eyediseasesegmentation_tpu_torch.utils import fold_in
+
+    trainer = full_trainer(device)
+    images, masks = train_batch()
+    epoch_gen = fold_in(torch.Generator().manual_seed(SEED), 1000)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                               # the train steps start here
+    first = trainer.train_step(images, masks, epoch_gen, 1e-3)["loss"]
+    first = float(first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        m = trainer.train_step(images, masks, epoch_gen, 1e-3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()                       # ... and end here
+    last = float(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(first) and math.isfinite(last),
+          f"train: losses {first}, {last}")
+    check(not any(counts.values()),
+          f"train: kernel launches in the train steps {counts}")
+    ms = 1e3 * dt / TRAIN_STEPS
+    print(f"train step {SCALE}² b=2 bf16 advanced base_dim={SCALE // 32} "
+          f"AdamW: {ms:.2f} ms/step, {2 * TRAIN_STEPS / dt:.4f} images/sec "
+          f"over {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up; peak "
+          f"memory {peak / 2**30:.3f} GiB; loss first {first:.6f} last "
+          f"{last:.6f}; kernel launches {counts}; {card}", flush=True)
+
+    reset_counts()
+    r = trainer.eval_step(images, masks, 2)
+    torch.cuda.synchronize()
+    counts, by_variant = read_counts(), read_variant_counts()
+    check(trainer.model.training, "eval_step: model not back in train()")
+    k1 = counts["axial_attention"]
+    check(k1 > 0 and by_variant["axial_attention"]["wmma"] == 0,
+          f"eval_step: K1 launches {by_variant['axial_attention']}")
+    check_variants("eval_step", by_variant, "sm90")
+    vals = [float(r[k]) for k in ("inter", "pred", "true", "loss")]
+    check(all(math.isfinite(v) for v in vals)
+          and bool(torch.isfinite(r["tp"]).all()),
+          f"eval_step: {vals}")
+    dice = (2 * vals[0] + 1e-7) / (vals[1] + vals[2] + 1e-7)
+    print(f"eval_step {SCALE}² b=2 bf16: loss {vals[3]:.6f}, dice "
+          f"{dice:.6f}, launches {counts} (K1 by variant "
+          f"{by_variant['axial_attention']})", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return k1
+
+
+def write_tree(root):
+    """A train tree in the IDRiD layout: ``TREE_IMAGES`` synthetic fundus
+    images (jpg) and their EX masks (tif), written with PIL."""
+    import numpy as np
+    from PIL import Image
+    from eyediseasesegmentation_tpu_torch.data.paths import lesion_dict
+
+    img_dir = root / "train" / "image"
+    msk_dir = root / "train" / "mask" / lesion_dict["EX"].dir_name
+    img_dir.mkdir(parents=True)
+    msk_dir.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 8)
+    for i in range(TREE_IMAGES):
+        img, mask = synthetic_fundus(rng, FULL_HW)
+        Image.fromarray(img).save(img_dir / f"IDRiD_{i:02d}.jpg", quality=95)
+        Image.fromarray((mask * 255).astype(np.uint8)).save(
+            msk_dir / f"IDRiD_{i:02d}_EX.tif")
+    return img_dir, root / "train" / "mask"
+
+
+def phase_train_model(device):
+    """``train_model`` for one epoch at full width, then ``best.ckpt`` loaded
+    for inference and one d4 predict. Returns K1's launches in the run."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from eyediseasesegmentation_tpu_torch.infer.tta import (
+        TTAPredictor, load_model_for_inference)
+    from eyediseasesegmentation_tpu_torch.train.trainer import train_model
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        img_dir, mask_dir = write_tree(root / "data")
+        cfg = dict(TRAIN_CONFIG, num_epochs=1, train_img_path=str(img_dir),
+                   train_mask_path=str(mask_dir))
+        reset_counts()
+        t0 = time.perf_counter()
+        logdir = train_model("smoke", cfg, seed=1999,
+                             models_root=str(root / "models"))
+        t_train = time.perf_counter() - t0
+        counts, by_variant = read_counts(), read_variant_counts()
+        check(counts["axial_attention"] > 0, f"train_model: {counts}")
+        check_variants("train_model", by_variant, "sm90")
+        check(json.loads((logdir / "config.json").read_text()) == cfg,
+              "train_model: config.json")
+        rows = [json.loads(x) for x in
+                (logdir / "metrics.jsonl").read_text().splitlines()]
+        check(len(rows) == 1 and all(
+            math.isfinite(v) for v in rows[0].values()),
+            f"train_model: metrics rows {rows}")
+        for name in ("best", "last", "best_full"):
+            check((logdir / "checkpoints" / f"{name}.ckpt").is_file(),
+                  f"train_model: no {name}.ckpt")
+        model, run_cfg = load_model_for_inference(logdir)
+        check(next(model.parameters()).device.type == "cuda",
+              "train_model: the run did not load on the card")
+        predictor = TTAPredictor(model, run_cfg, tta="d4", ori_hw=FULL_HW)
+        img = np.asarray(Image.open(img_dir / "IDRiD_00.jpg").convert(
+            "RGB"))[None]
+        probs = predictor.predict(img)
+        torch.cuda.synchronize()
+        check(tuple(probs.shape) == (1, *FULL_HW)
+              and bool(torch.isfinite(probs).all())
+              and 0.0 <= probs.min().item() <= probs.max().item() <= 1.0,
+              f"train_model: predict {tuple(probs.shape)}")
+    print(f"train_model 1 epoch at {SCALE}² bf16 on {TREE_IMAGES} images of "
+          f"{FULL_HW[0]}x{FULL_HW[1]} (4 train, 1 val): {t_train:.2f} s, row "
+          f"{rows[0]}; K1 launches {counts['axial_attention']} (by variant "
+          f"{by_variant['axial_attention']}); best.ckpt loaded for one d4 "
+          f"predict; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del model, predictor, probs
+    torch.cuda.empty_cache()
+    return counts["axial_attention"]
+
+
+def phase_profile_train(device):
+    """Device time by op of one full-width train step after two warm-ups."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from eyediseasesegmentation_tpu_torch.utils import fold_in
+
+    trainer = full_trainer(device)
+    images, masks = train_batch()
+    gen = fold_in(torch.Generator().manual_seed(SEED), 1000)
+    for _ in range(2):
+        trainer.train_step(images, masks, gen, 1e-3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(images, masks, gen, 1e-3)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    print_profile("train", prof, wall, rows=24)
+
+
+def print_profile(tag, prof, wall, rows=16):
+    """Device time by op: the self device time of each aten op (the kernels
+    it launched itself), and the port's own kernels, which no aten op
+    launches. Kernel records of aten ops are skipped here, or their time
+    would count twice; they give the busy time."""
+    from torch.autograd import DeviceType
+    table, busy = [], 0.0
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total",
+                      getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+        if dev <= 0 or evt.key == "Command Buffer Full":
+            continue
+        if evt.device_type == DeviceType.CUDA:
+            busy += dev
+            if "dconv::" not in evt.key and "axial" not in evt.key:
+                continue
+        table.append((dev, evt.count, evt.key))
+    table.sort(reverse=True)
+    total = sum(r[0] for r in table)
+    print(f"profile {tag}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"(kernel and copy records, one stream), idle "
+          f"{100 * (1 - busy / wall):.1f} %; {total:.1f} ms attributed to "
+          f"ops", flush=True)
+    for ms, count, key in table[:rows]:
+        print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f} %  x{count:<5d} "
+              f"{key[:90]}", flush=True)
+
+
 def phase_profile(device, modes):
     """Device time by op of one ``predict`` of the bench workload, after two
     warm-ups, for each mode."""
@@ -982,31 +1319,7 @@ def phase_profile(device, modes):
             predictor.predict(imgs)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
-        # Device time by op: the self device time of each aten op (the
-        # kernels it launched itself), and the port's own kernels, which no
-        # aten op launches. Kernel records of aten ops are skipped here, or
-        # their time would count twice; they give the busy time below.
-        from torch.autograd import DeviceType
-        rows, busy = [], 0.0
-        for evt in prof.key_averages():
-            dev = getattr(evt, "self_device_time_total",
-                          getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
-            if dev <= 0 or evt.key == "Command Buffer Full":
-                continue
-            if evt.device_type == DeviceType.CUDA:
-                busy += dev
-                if "dconv::" not in evt.key and "axial" not in evt.key:
-                    continue
-            rows.append((dev, evt.count, evt.key))
-        rows.sort(reverse=True)
-        total = sum(r[0] for r in rows)
-        print(f"profile pallas_tail={mode}: wall {wall:.1f} ms, device busy "
-              f"{busy:.1f} ms (kernel and copy records, one stream), idle "
-              f"{100 * (1 - busy / wall):.1f} %; {total:.1f} ms attributed "
-              f"to ops", flush=True)
-        for ms, count, key in rows[:16]:
-            print(f"  {ms:9.2f} ms {100 * ms / busy:5.1f} %  x{count:<5d} "
-                  f"{key[:90]}", flush=True)
+        print_profile(f"pallas_tail={mode}", prof, wall)
         del predictor
         torch.cuda.empty_cache()
 
@@ -1020,7 +1333,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", default=None, metavar="MODES",
                         help="comma-separated pallas_tail modes "
                              f"({', '.join(TAIL_MODES)}): print the device "
-                             "time by op of one predict and stop")
+                             "time by op of one predict and stop; 'train': "
+                             "of one full-width train step")
     parser.add_argument("--routes", action="store_true",
                         help="print the bf16 route check's ratios, hold "
                              "them to no bound, and stop")
@@ -1057,9 +1371,13 @@ def main(argv=None) -> int:
     try:
         if args.profile is not None:
             modes = args.profile.split(",")
-            check(all(m in TAIL_MODES for m in modes),
+            check(all(m in TAIL_MODES or m == "train" for m in modes),
                   f"--profile: unknown mode in {modes}")
-            phase_profile(device, modes)
+            if "train" in modes:
+                phase_profile_train(device)
+            modes = [m for m in modes if m != "train"]
+            if modes:
+                phase_profile(device, modes)
             print(card, flush=True)
             return 0
         if args.routes:
@@ -1073,6 +1391,9 @@ def main(argv=None) -> int:
         runs = {mode: phase_bench(device, mode) for mode in TAIL_MODES}
         phase_test_tta(device, card)
         k4_launches, k4_variants = phase_conv3x3_path(device)
+        phase_train_parity(device)
+        k1_eval_step = phase_train(device, card)
+        k1_train_model = phase_train_model(device)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1093,7 +1414,9 @@ def main(argv=None) -> int:
         entry("axial_attention", counts["off"]["axial_attention"], k1,
               variant=k1["variant"],
               variants=by_variant["off"]["axial_attention"],
-              shapes=k1["shapes"]),
+              shapes=k1["shapes"],
+              train={"eval_step_launches": k1_eval_step,
+                     "train_model_launches": k1_train_model}),
         entry("scse_conv", counts["v1"]["scse_conv"], conv["scse_conv"],
               variant=conv["scse_conv"]["variant"],
               variants=by_variant["v1"]["scse_conv"]),

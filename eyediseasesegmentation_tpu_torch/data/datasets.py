@@ -1,12 +1,12 @@
-"""Test-time datasets: host-side decode feeding the device (torch port).
+"""Datasets: host-side decode feeding the device (torch port).
 
-Counterpart of the test side of ``eyediseasesegmentation_tpu/data/datasets.py``:
-the host decodes files to uint8 numpy arrays (plus the dynamic-shape Ben
-crop when asked for) and stacks fixed-shape batches; resize, pad and
-normalization run on the device inside the predictor. PIL and cv2 are
-imported where a file is decoded, so the package imports without them.
-``OneLesionSegmentation`` and ``train_val_split`` wait for the train step
-(ROADMAP.md).
+Counterpart of ``eyediseasesegmentation_tpu/data/datasets.py``: the host
+decodes files to uint8 numpy arrays (plus the dynamic-shape Ben crop when
+asked for) and stacks fixed-shape batches; resize, pad, normalization and
+augmentation run on the device, in the predictor or the trainer. PIL and cv2
+are imported where a file is decoded, so the package imports without them.
+``train_val_split`` draws from numpy's ``RandomState(seed)``, so its split is
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -53,6 +53,63 @@ def ben_color_host(image: np.ndarray, sigma: float = 10.0,
         img = cv2.resize(img, (img_size[0], img_size[1]))
     blur = cv2.GaussianBlur(img, (0, 0), sigma)
     return cv2.addWeighted(img, 4, blur, -4, 128)
+
+
+@dataclasses.dataclass
+class OneLesionSegmentation:
+    """Train/val dataset of paired image / mask files (reference
+    lesion_dataset.py:38-91). ``__getitem__`` returns host arrays: the image
+    uint8 (fp32 luma repeated over three channels with ``gray``), the mask
+    {0, 1} fp32; ``with_label`` adds the per-patch label ``mask.sum() > 0``.
+    """
+
+    image_paths: Sequence[Path]
+    mask_paths: Sequence[Path]
+    gray: bool = False
+    ben_transform: bool = False
+    with_label: bool = False
+
+    def __post_init__(self):
+        assert len(self.image_paths) == len(self.mask_paths), (
+            len(self.image_paths), len(self.mask_paths))
+
+    def __len__(self):
+        return len(self.image_paths)
+
+    def __getitem__(self, idx: int):
+        img = _load_rgb(self.image_paths[idx])
+        mask = _load_mask(self.mask_paths[idx])
+        if self.ben_transform:
+            img = ben_color_host(img)       # uint8 in, uint8 out
+            if img.shape[:2] != mask.shape:
+                import cv2
+                mask = cv2.resize(mask, (img.shape[1], img.shape[0]),
+                                  interpolation=cv2.INTER_NEAREST)
+        if self.gray:
+            g = img.astype(np.float32) @ np.array([0.2989, 0.5870, 0.1140],
+                                                  np.float32)
+            img = np.repeat(g[..., None], 3, axis=-1)
+        sample = {"image": img, "mask": mask,
+                  "image_id": Path(self.image_paths[idx]).stem}
+        if self.with_label:
+            sample["label"] = np.float32(mask.sum() > 0)
+        return sample
+
+
+def train_val_split(items_a: Sequence, items_b: Sequence,
+                    val_size: float = 0.2, seed: int = 1999):
+    """The JAX package's deterministic split (the role of sklearn's
+    train_test_split(random_state=seed), reference train.py:66-75)."""
+    n = len(items_a)
+    order = np.arange(n)
+    np.random.RandomState(seed).shuffle(order)
+    n_val = max(1, int(round(n * val_size))) if n > 1 else 0
+    val_idx = set(order[:n_val].tolist())
+    tr_a = [items_a[i] for i in range(n) if i not in val_idx]
+    tr_b = [items_b[i] for i in range(n) if i not in val_idx]
+    va_a = [items_a[i] for i in range(n) if i in val_idx]
+    va_b = [items_b[i] for i in range(n) if i in val_idx]
+    return (tr_a, tr_b), (va_a, va_b)
 
 
 def reference_gt_roundtrip(mask01: np.ndarray, scale_size: int) -> np.ndarray:

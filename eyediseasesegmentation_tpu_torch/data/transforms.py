@@ -1,22 +1,107 @@
-"""Eval-time transform (torch port).
+"""Augmentation policies and the eval-time transform (torch port).
 
-Counterpart of the ``test`` path of ``BaseTransform`` / ``NormalTransform``
-in ``eyediseasesegmentation_tpu/data/transforms.py``: LongestMaxSize + centre
-pad to ``image_size``, then the dataset normalization. Images are float
-[0, 255], channel last, one (H, W, C) or a batch (N, H, W, C). The train-time
-augmentation policies are not ported yet (ROADMAP.md, "Train step").
+Counterpart of ``eyediseasesegmentation_tpu/data/transforms.py``. A policy
+maps ``(image[H, W, C] float 0..255, mask[H, W] float 0/1)`` to the same at
+``image_size``: ``train`` resizes (LongestMaxSize + centre pad, the mask
+nearest), applies the policy's ``hard`` augmentation and normalizes;
+``test`` resizes and normalizes. Eager torch branches natively, so the
+stochastic gates (``_maybe``, ``_one_of``, ``_rot90``) are Python branches
+taken one sample at a time, and only the taken op runs.
+
+Randomness comes from an :class:`AugRng`: a CPU generator for the gate and
+pick decisions and the ops' scalars (drawing them never waits for the
+device) and a generator on the images' device for noise fields. The draw
+order of a policy is fixed: one gate (and pick) per member, in the order
+the JAX policy lists them, then the member's own draws when it is taken.
+
+``none``, ``normal`` and ``advanced`` are ported; ``easy``, ``easy_v2``,
+``medium`` and ``advanced_vessel`` need the elastic / grid / optical
+distortions, CLAHE and random scale, which are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..ops import image as I
 
 
+@dataclasses.dataclass
+class AugRng:
+    """The generators of one augmentation call: ``host`` on the CPU (gates,
+    picks, scalars), ``device`` where the images live (noise fields;
+    ``None``: that device's default generator)."""
+
+    host: torch.Generator
+    device: Optional[torch.Generator] = None
+
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _maybe(rng: AugRng, p: float, fn, img, mask) -> Pair:
+    """Apply ``fn`` with probability ``p``."""
+    if I.uniform(rng.host, 0.0, 1.0) < p:
+        return fn(rng, img, mask)
+    return img, mask
+
+
+def _one_of(rng: AugRng, fns, img, mask, p: float) -> Pair:
+    """albumentations OneOf: with probability ``p`` apply one member picked
+    uniformly."""
+    apply = I.uniform(rng.host, 0.0, 1.0) < p
+    idx = I.randint(rng.host, 0, len(fns))
+    return fns[idx](rng, img, mask) if apply else (img, mask)
+
+
+def _vflip(rng, img, mask):
+    return I.vflip(img), I.vflip(mask[..., None])[..., 0]
+
+
+def _hflip(rng, img, mask):
+    return I.hflip(img), I.hflip(mask[..., None])[..., 0]
+
+
+def _rot90(rng, img, mask):
+    """RandomRotate90: k ~ uniform{0..3}."""
+    k = I.randint(rng.host, 0, 4)
+    if k == 0:
+        return img, mask
+    return I.rot90(img, k), I.rot90(mask[..., None], k)[..., 0]
+
+
+def _contrast(rng, img, mask):
+    return I.apply_contrast(img, I.draw_contrast(rng.host)), mask
+
+
+def _gamma(rng, img, mask):
+    return I.apply_gamma(img, I.draw_gamma(rng.host)), mask
+
+
+def _brightness(rng, img, mask):
+    return I.apply_brightness(img, I.draw_brightness(rng.host)), mask
+
+
+def _gauss_noise(rng, img, mask):
+    var, z = I.draw_gauss_noise(rng.host, img.shape, rng.device, img.device)
+    return I.apply_gauss_noise(img, var, z), mask
+
+
+def _shift_scale_rotate(rng, img, mask):
+    params = I.draw_shift_scale_rotate(rng.host, img.shape[0], img.shape[1])
+    return I.apply_shift_scale_rotate(img, mask, *params)
+
+
+PHOTOMETRIC = (_contrast, _gamma, _brightness)
+
+
 class BaseTransform:
+    """``train(img, mask, rng)`` = resize → hard augmentation → normalize;
+    ``test(img)`` = resize → normalize. Images enter as float [0, 255] of
+    any size, channel last, and leave at (image_size, image_size)."""
 
     def __init__(self, image_size: int = 1024,
                  preprocessing_fn: Optional[Callable] = None):
@@ -26,23 +111,89 @@ class BaseTransform:
     def resize(self, img: torch.Tensor) -> torch.Tensor:
         return I.longest_max_size_pad(img, self.image_size)
 
+    def resize_pair(self, img: torch.Tensor, mask: torch.Tensor) -> Pair:
+        m = mask[..., None] if mask.ndim == 2 else mask
+        m = I.longest_max_size_pad(m, self.image_size, method="nearest")
+        return self.resize(img), (m[..., 0] if mask.ndim == 2 else m)
+
+    def hard(self, rng: AugRng, img, mask) -> Pair:
+        return img, mask
+
+    def train(self, img, mask, rng: AugRng) -> Pair:
+        img, mask = self.resize_pair(img, mask)
+        img, mask = self.hard(rng, img, mask)
+        if self.preprocessing_fn is not None:
+            img = self.preprocessing_fn(img)
+        return img, mask
+
     def test(self, img: torch.Tensor) -> torch.Tensor:
         img = self.resize(img)
         if self.preprocessing_fn is not None:
             img = self.preprocessing_fn(img)
         return img
 
+    def batch_train(self, imgs, masks, rng: AugRng) -> Pair:
+        """One sample at a time, in batch order, from one ``rng``."""
+        outs = [self.train(imgs[i], masks[i], rng)
+                for i in range(imgs.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+
+class NoOpTransform(BaseTransform):
+    """Resize and normalize only."""
+
 
 class NormalTransform(BaseTransform):
-    """The 'normal' policy; at test time it is the base resize + normalize."""
+    """vflip .5, hflip .5, rot90 .7, GaussNoise .5."""
+
+    def hard(self, rng, img, mask):
+        img, mask = _maybe(rng, 0.5, _vflip, img, mask)
+        img, mask = _maybe(rng, 0.5, _hflip, img, mask)
+        img, mask = _maybe(rng, 0.7, _rot90, img, mask)
+        img, mask = _maybe(rng, 0.5, _gauss_noise, img, mask)
+        return img, mask
 
 
-TRANSFORM_REGISTRY = {"normal": NormalTransform}
+class AdvancedTransform(BaseTransform):
+    """hflip .5, vflip .5, rot90 .7, OneOf(contrast, gamma, brightness) .5,
+    ShiftScaleRotate .5, GaussNoise .5 (the reference's distortion OneOf
+    has p = 0 and is left out, as in the JAX policy)."""
+
+    def hard(self, rng, img, mask):
+        img, mask = _maybe(rng, 0.5, _hflip, img, mask)
+        img, mask = _maybe(rng, 0.5, _vflip, img, mask)
+        img, mask = _maybe(rng, 0.7, _rot90, img, mask)
+        img, mask = _one_of(rng, PHOTOMETRIC, img, mask, p=0.5)
+        img, mask = _maybe(rng, 0.5, _shift_scale_rotate, img, mask)
+        img, mask = _maybe(rng, 0.5, _gauss_noise, img, mask)
+        return img, mask
+
+
+def _not_ported(name: str, needs: str):
+    def make(*args, **kwargs):
+        raise NotImplementedError(
+            f"augmentation '{name}' needs {needs}, which the port does not "
+            "have yet (ROADMAP.md, queue 1 item E: the remaining transform "
+            "policies)")
+    return make
+
+
+TRANSFORM_REGISTRY = {
+    "none": NoOpTransform,
+    "normal": NormalTransform,
+    "easy": _not_ported("easy", "the distortion ops and CLAHE"),
+    "easy_v2": _not_ported("easy_v2", "the distortion ops"),
+    "medium": _not_ported("medium", "the distortion ops and CLAHE"),
+    "advanced": AdvancedTransform,
+    "advanced_vessel": _not_ported("advanced_vessel", "random scale"),
+}
 
 
 def get_transform(name: str):
+    """Policy registry, the JAX package's names."""
     try:
         return TRANSFORM_REGISTRY[name]
     except KeyError:
-        raise KeyError(f"Transform '{name}' is not ported yet (ported: "
-                       f"{sorted(TRANSFORM_REGISTRY)}); see ROADMAP.md") from None
+        raise KeyError(f"Unknown transform '{name}'. Options: "
+                       f"{sorted(TRANSFORM_REGISTRY)}") from None

@@ -17,7 +17,7 @@ import torch
 from .unetplusplusstar import UnetPlusPlusStar
 
 __all__ = ["MODEL_REGISTRY", "list_models", "get_model", "get_preprocessing_fn",
-           "DATASET_STATS", "init_random"]
+           "DATASET_STATS", "init_random", "init_flax"]
 
 # the reference spelling the JAX registry translates
 _ALIASES = {"clfhead": "clf_head"}
@@ -29,12 +29,12 @@ def _factory(cls) -> Callable[..., Any]:
     def make(**params):
         # keys that are not constructor fields are dropped, as in the JAX
         # registry: the reference's torch-only keys (encoder_weights,
-        # pretrained, encoder_depth, ...), the JAX layout knobs (fast_inference,
-        # keep_packed, remat, ...), exact rewrites of the logical path
-        # (tests/test_packed_tail.py; pallas_tail and fast_min_res ARE
-        # fields: they select the fused decode-node kernels), and
-        # drop_block_prob (DropBlock is the
-        # identity at eval), so a config.json round-trips
+        # pretrained, encoder_depth, ...) and the JAX layout knobs
+        # (fast_inference, fast_train, keep_packed, ...), exact rewrites of
+        # the logical path (tests/test_packed_tail.py; pallas_tail and
+        # fast_min_res ARE fields: they select the fused decode-node
+        # kernels; drop_block_prob and remat are fields too), so a
+        # config.json round-trips
         kwargs = {}
         for k, v in params.items():
             k2 = _ALIASES.get(k, k)
@@ -54,56 +54,89 @@ def list_models():
     return list(MODEL_REGISTRY.keys())
 
 
-def init_random(model: torch.nn.Module,
-                generator: torch.Generator) -> torch.nn.Module:
-    """Fill every parameter and buffer of ``model`` from ``generator``, at
-    the scales of the flax initializers (lecun-normal weights, unit-normal
-    position tables) with BatchNorm statistics drawn away from the identity.
-    Draws on the CPU, so a seed gives the same weights on every device."""
+def _fill(model: torch.nn.Module, who: str, bn, kernel, bias,
+          relative) -> torch.nn.Module:
+    """Draw every parameter and buffer of ``model`` on the CPU by kind:
+    ``bn`` (BatchNorm leaf → draw), ``kernel(fan_in)`` for conv, dense and
+    projection weights, ``bias`` and ``relative`` (position tables). Raises
+    on a leaf no kind covers."""
     from .modules.axial import RelativePosEnc2D
     from .modules.layers import BatchNorm
-
-    def draw(t, fn):
-        t.copy_(fn(torch.empty(t.shape, dtype=torch.float32)))
-
-    def normal(std, mean=0.0):
-        return lambda x: x.normal_(mean, std, generator=generator)
-
-    def uniform(lo, hi):
-        return lambda x: x.uniform_(lo, hi, generator=generator)
 
     done = set()
     with torch.no_grad():
         for name, mod in model.named_modules():
             leaves = {}
             if isinstance(mod, BatchNorm):
-                leaves = {"weight": uniform(0.8, 1.2), "bias": normal(0.1),
-                          "running_mean": normal(0.1),
-                          "running_var": uniform(0.5, 1.5)}
+                leaves = dict(bn)
             elif isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
-                fan_in = mod.weight[0].numel()
-                leaves = {"weight": normal(fan_in ** -0.5),
-                          "bias": normal(0.01)}
+                leaves = {"weight": kernel(mod.weight[0].numel()),
+                          "bias": bias}
             elif isinstance(mod, RelativePosEnc2D):
-                leaves = {"relative": normal(1.0)}
+                leaves = {"relative": relative}
             for leaf in ("to_qkv", "to_kq", "to_v"):
                 if isinstance(getattr(mod, leaf, None), torch.nn.Parameter):
-                    leaves[leaf] = normal(getattr(mod, leaf).shape[0] ** -0.5)
+                    leaves[leaf] = kernel(getattr(mod, leaf).shape[0])
             for leaf, fn in leaves.items():
                 t = getattr(mod, leaf, None)
                 if t is not None:
-                    draw(t, fn)
+                    t.copy_(fn(torch.empty(t.shape, dtype=torch.float32)))
                     done.add(f"{name}.{leaf}" if name else leaf)
     unset = sorted(set(model.state_dict()) - done)
     if unset:
-        raise ValueError(f"init_random: no rule for {unset[:10]}")
+        raise ValueError(f"{who}: no rule for {unset[:10]}")
     return model
+
+
+def init_random(model: torch.nn.Module,
+                generator: torch.Generator) -> torch.nn.Module:
+    """Fill every parameter and buffer of ``model`` from ``generator``, at
+    the scales of the flax initializers (lecun-normal weights, unit-normal
+    position tables) with BatchNorm statistics drawn away from the identity.
+    Draws on the CPU, so a seed gives the same weights on every device."""
+    def normal(std, mean=0.0):
+        return lambda x: x.normal_(mean, std, generator=generator)
+
+    def uniform(lo, hi):
+        return lambda x: x.uniform_(lo, hi, generator=generator)
+
+    return _fill(model, "init_random",
+                 bn={"weight": uniform(0.8, 1.2), "bias": normal(0.1),
+                     "running_mean": normal(0.1),
+                     "running_var": uniform(0.5, 1.5)},
+                 kernel=lambda fan_in: normal(fan_in ** -0.5),
+                 bias=normal(0.01), relative=normal(1.0))
+
+
+def init_flax(model: torch.nn.Module,
+              generator: torch.Generator) -> torch.nn.Module:
+    """Initialise ``model`` as the JAX package's ``model.init`` does, by the
+    flax initializers: lecun-normal (fan-in variance scaling, normal
+    truncated at two standard deviations) for conv, dense and projection
+    kernels, zeros for biases, unit-normal position tables, BatchNorms at
+    the identity (scale 1, bias 0, running mean 0, variance 1). Draws on
+    the CPU from ``generator``, so a seed gives the same weights on every
+    device (the streams are torch's, not JAX's)."""
+    def kernel(fan_in):
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+        return lambda x: torch.nn.init.trunc_normal_(
+            x, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+    ones, zeros = torch.nn.init.ones_, torch.nn.init.zeros_
+    return _fill(model, "init_flax",
+                 bn={"weight": ones, "bias": zeros, "running_mean": zeros,
+                     "running_var": ones},
+                 kernel=kernel, bias=zeros,
+                 relative=lambda x: x.normal_(0.0, 1.0, generator=generator))
 
 
 def get_model(model_name: str, params: Optional[Dict[str, Any]] = None,
               training: bool = True, dtype: torch.dtype = torch.float32,
               device=None):
-    """Registry factory with the reference's inference-time demotions.
+    """Registry factory with the reference's inference-time demotions
+    (``training=False`` drops the deep-supervision and classification
+    heads; ``training=True`` keeps them). The model comes back in eval
+    mode: a trainer calls ``.train()``.
 
     The model is built on ``device``. ``None`` means the GPU (``"cuda"``)
     and raises when there is none: the port runs on the CPU only for a
@@ -127,6 +160,7 @@ def get_model(model_name: str, params: Optional[Dict[str, Any]] = None,
         params["pretrained"] = False
         params["encoder_weights"] = None
         params["deep_supervision"] = False
+        params.pop("remat", None)    # a training-only knob
     params["dtype"] = dtype
     return model_fn(**params).to(device)
 

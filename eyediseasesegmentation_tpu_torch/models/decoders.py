@@ -1,4 +1,4 @@
-"""UNet++ decoder with cross-axial skip gates (torch, NCHW, eval only).
+"""UNet++ decoder with cross-axial skip gates (torch, NCHW).
 
 Counterpart of ``eyediseasesegmentation_tpu/models/decoders.py``, logical
 path: ``DecoderBlock`` upsamples ×2 and either gates the skip with scSE over
@@ -16,8 +16,9 @@ package the routes also need ``fast_inference`` (the TPU default); here
 ``pallas_tail`` alone switches them on, because the packed layouts
 (``fast_inference``, ``keep_packed``) are exact rewrites of the logical path
 with no counterpart in the port: they only decide which nodes qualify. The
-kernels are eval-only, like the rest of the port: a block in training mode
-raises.
+kernels have no backward: in training every node takes the plain path, as
+the JAX decoder does (``pallas_tail and not train``), and the cross-axial
+gates run their attention's train path.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from .modules.axial import (CrossAxialAttention, columns, columns_to_rows,
                             rows_to_nchw)
 from ..ops.decode_pair import scse_conv3x3_pair
 from ..ops.scse_conv import scse_conv3x3_bn_relu
-from .modules.layers import (Attention, BatchNorm, ConvBNReLU, EvalModule,
+from .modules.layers import (Attention, BatchNorm, ConvBNReLU, PortModule,
                              Parts, conv2d, output_parts, upsample2x,
                              upsample2x_w)
 
@@ -46,13 +47,13 @@ def check_pallas_tail(mode: Any) -> Any:
     return mode
 
 
-class DecoderBlock(EvalModule):
+class DecoderBlock(PortModule):
 
     def __init__(self, in_channels: int, skip_channels: int,
                  out_channels: int, base_dim: int = 32, level: int = 0,
                  use_catt: bool = False,
                  attention_type: Optional[str] = None,
-                 pallas_tail: Any = False,
+                 pallas_tail: Any = False, drop_block_prob: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.use_catt, self.dtype = use_catt, dtype
@@ -75,8 +76,9 @@ class DecoderBlock(EvalModule):
             self.attention1 = Attention(attention_type,
                                         in_channels + skip_channels, dtype)
         self.conv1 = ConvBNReLU(in_channels + skip_channels, out_channels,
-                                dtype=dtype)
-        self.conv2 = ConvBNReLU(out_channels, out_channels, dtype=dtype)
+                                dtype=dtype, drop_block_prob=drop_block_prob)
+        self.conv2 = ConvBNReLU(out_channels, out_channels, dtype=dtype,
+                                drop_block_prob=drop_block_prob)
         if not use_catt:
             self.attention2 = Attention(attention_type, out_channels, dtype)
 
@@ -138,11 +140,12 @@ class DecoderBlock(EvalModule):
     def forward(self, x: torch.Tensor, skip: Optional[Parts] = None,
                 kernel_route: Optional[bool] = None):
         """``kernel_route``: take the ``pallas_tail`` route for this call
-        (None: whenever the block has one and a skip that scSE gates)."""
+        (None: whenever the block has one and a skip that scSE gates). In
+        training the route is never taken."""
         if kernel_route is None:
             kernel_route = bool(self.pallas_tail)
         if (kernel_route and self.pallas_tail and skip is not None
-                and not self.use_catt):
+                and not self.use_catt and not self.training):
             skips = output_parts(skip)
             if self.pallas_tail in ("pair", "pair_up"):
                 return self._pallas_pair_call(
@@ -161,7 +164,7 @@ class DecoderBlock(EvalModule):
         return y
 
 
-class UnetPlusPlusDecoder(EvalModule):
+class UnetPlusPlusDecoder(PortModule):
     """Nested UNet++ dense-grid decoder, star variant: the skips of the
     nodes with layer index 0 or 1 (x_0_0, x_1_1, x_0_1) are gated by
     cross-axial attention. Returns the final map, or
@@ -172,6 +175,7 @@ class UnetPlusPlusDecoder(EvalModule):
                  base_dim: int = 32, attention_type: Optional[str] = None,
                  deep_supervision: bool = False,
                  pallas_tail: Any = False, fast_min_res: int = 512,
+                 drop_block_prob: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.deep_supervision = deep_supervision
@@ -196,7 +200,7 @@ class UnetPlusPlusDecoder(EvalModule):
                 in_ch, skip_ch, out_ch, base_dim=base_dim, level=layer_idx,
                 use_catt=layer_idx in (0, 1),
                 attention_type=attention_type, pallas_tail=pallas_tail,
-                dtype=dtype))
+                drop_block_prob=drop_block_prob, dtype=dtype))
 
         for d in range(depth):
             add(d, d)
@@ -205,7 +209,8 @@ class UnetPlusPlusDecoder(EvalModule):
                 add(depth_idx, depth_idx + layer_idx)
         self.add_module(f"x_0_{depth}", DecoderBlock(
             in_channels[-1], 0, out_channels[-1], base_dim=base_dim,
-            attention_type=attention_type, dtype=dtype))
+            attention_type=attention_type, drop_block_prob=drop_block_prob,
+            dtype=dtype))
 
     def kernel_nodes(self, feat_hw: Sequence[Tuple[int, int]]) -> List[str]:
         """The nodes that take the ``pallas_tail`` route, from shapes alone.
@@ -257,7 +262,8 @@ class UnetPlusPlusDecoder(EvalModule):
     def forward(self, features: List[torch.Tensor]):
         depth = self.depth
         feats = features[1:][::-1]
-        routed = set(self.kernel_nodes([tuple(f.shape[2:]) for f in feats]))
+        routed = (set() if self.training else
+                  set(self.kernel_nodes([tuple(f.shape[2:]) for f in feats])))
         dense: Dict[str, torch.Tensor] = {}
         for d in range(depth):
             name = f"x_{d}_{d}"

@@ -1,9 +1,12 @@
-"""Feature-pyramid encoders (torch, NCHW, eval only).
+"""Feature-pyramid encoders (torch, NCHW).
 
 Counterpart of ``eyediseasesegmentation_tpu/models/encoders.py`` for the
 flagship's encoder: BoTSER50, an SE-ResNet50 whose layer4 is three
 axial-attention blocks, the last two sharing weights. Every encoder returns
 the 6-level pyramid ``[x, c0(/2), c1(/4), c2(/8), c3(/16), c4(/32)]``.
+A ``pretrained`` BoTSER50 (the ``_Imagenet`` configs) freezes the BatchNorms
+of its stem and layers 1-3: they normalise with their running statistics in
+training too and never update them.
 """
 
 from __future__ import annotations
@@ -15,31 +18,32 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .modules.axial import AxialAttentionBlock
-from .modules.layers import BatchNorm, EvalModule, SEBlock, conv2d
+from .modules.layers import BatchNorm, PortModule, SEBlock, conv2d
 
 
-class Bottleneck(EvalModule):
+class Bottleneck(PortModule):
     """SE bottleneck: 1×1 → 3×3 (stride, pad 1) → 1×1 → squeeze-excite,
     with a 1×1 projection shortcut where the shape changes."""
 
     expansion = 4
 
     def __init__(self, cin: int, features: int, strides: int = 1,
+                 frozen_bn: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.strides, self.dtype = strides, dtype
         out_ch = features * self.expansion
         self.conv1 = nn.Conv2d(cin, features, 1, bias=False)
-        self.bn1 = BatchNorm(features, dtype)
+        self.bn1 = BatchNorm(features, dtype, frozen=frozen_bn)
         self.conv2 = nn.Conv2d(features, features, 3, bias=False)
-        self.bn2 = BatchNorm(features, dtype)
+        self.bn2 = BatchNorm(features, dtype, frozen=frozen_bn)
         self.conv3 = nn.Conv2d(features, out_ch, 1, bias=False)
-        self.bn3 = BatchNorm(out_ch, dtype)
+        self.bn3 = BatchNorm(out_ch, dtype, frozen=frozen_bn)
         self.se = SEBlock(out_ch, dtype=dtype)
         self.has_down = cin != out_ch or strides != 1
         if self.has_down:
             self.down_conv = nn.Conv2d(cin, out_ch, 1, bias=False)
-            self.down_bn = BatchNorm(out_ch, dtype)
+            self.down_bn = BatchNorm(out_ch, dtype, frozen=frozen_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -52,16 +56,17 @@ class Bottleneck(EvalModule):
         return torch.relu(y + x)
 
 
-class ResNetEncoder(EvalModule):
+class ResNetEncoder(PortModule):
     """SE-bottleneck ResNet encoder with the plain stem: 7×7/2 conv with
     pad 3, BN, ReLU (the /2 feature), then a 3×3/2 max-pool with pad 1."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 num_stages: int = 4, dtype: torch.dtype = torch.float32):
+                 num_stages: int = 4, frozen_bn: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.stem_conv = nn.Conv2d(3, 64, 7, bias=False)
-        self.stem_bn = BatchNorm(64, dtype)
+        self.stem_bn = BatchNorm(64, dtype, frozen=frozen_bn)
         self.block_names: List[List[str]] = []
         cin = 64
         for stage, n_blocks in enumerate(stage_sizes[:num_stages]):
@@ -71,7 +76,7 @@ class ResNetEncoder(EvalModule):
                 name = f"layer{stage + 1}_block{i}"
                 self.add_module(name, Bottleneck(
                     cin, planes, strides=2 if (i == 0 and stage > 0) else 1,
-                    dtype=dtype))
+                    frozen_bn=frozen_bn, dtype=dtype))
                 cin = planes * Bottleneck.expansion
                 names.append(name)
             self.block_names.append(names)
@@ -89,17 +94,20 @@ class ResNetEncoder(EvalModule):
         return feats
 
 
-class BoTSER50Encoder(EvalModule):
+class BoTSER50Encoder(PortModule):
     """SE-ResNet50 stem and layers 1-3, then layer4 = ``layer4_first``
     (1024→2048, downsampling, dim 2·base_dim) and ``layer4_shared`` applied
-    twice (one module, shared weights)."""
+    twice (one module, shared weights: in training its BatchNorm statistics
+    move twice per step, as in flax). ``pretrained`` freezes the BatchNorms
+    of the stem and layers 1-3."""
 
     out_channels: Tuple[int, ...] = (3, 64, 256, 512, 1024, 2048)
 
-    def __init__(self, base_dim: int = 32, dtype: torch.dtype = torch.float32):
+    def __init__(self, base_dim: int = 32, pretrained: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.seresnet = ResNetEncoder(stage_sizes=(3, 4, 6, 3), num_stages=3,
-                                      dtype=dtype)
+                                      frozen_bn=pretrained, dtype=dtype)
         self.layer4_first = AxialAttentionBlock(
             1024, 2048, down_sample=True, dim=base_dim * 2, heads=8,
             dtype=dtype)
@@ -115,18 +123,26 @@ class BoTSER50Encoder(EvalModule):
         return feats
 
 
-# the BoTSER50 configs with the axial layer4 (JAX encoders.py ENCODER_CONFIGS);
-# ``pretrained`` only freezes BN statistics in training, so at eval the
-# three are the same network
-BOTSER50_AXIAL = ("BoTSER50_Axial_Imagenet", "BoTSER50_Axial_Imagenet_2",
-                  "BoTSER50_Axial_Imagenet_3", "BoTSER50_Axial_scratch")
+# the BoTSER50 configs with the axial layer4 and whether each is
+# ``pretrained`` (JAX encoders.py ENCODER_CONFIGS); ``pretrained`` only
+# freezes BN statistics in training, so at eval the four are one network
+BOTSER50_AXIAL = {"BoTSER50_Axial_Imagenet": True,
+                  "BoTSER50_Axial_Imagenet_2": True,
+                  "BoTSER50_Axial_Imagenet_3": True,
+                  "BoTSER50_Axial_scratch": False}
 
 
 def get_encoder(name: str, base_dim: int = 32,
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32, remat: bool = False):
     """Build an encoder and its out_channels list by registry name."""
+    if remat:
+        raise NotImplementedError(
+            "remat (per-block gradient checkpointing) is not ported yet; it "
+            "comes with ROADMAP.md queue 1 item E (torch.utils.checkpoint "
+            "per block)")
     if name in BOTSER50_AXIAL:
-        enc = BoTSER50Encoder(base_dim=base_dim, dtype=dtype)
+        enc = BoTSER50Encoder(base_dim=base_dim,
+                              pretrained=BOTSER50_AXIAL[name], dtype=dtype)
         return enc, list(enc.out_channels)
     raise KeyError(f"Encoder '{name}' is not ported yet (ported: "
                    f"{list(BOTSER50_AXIAL)}); see ROADMAP.md for the rest of "

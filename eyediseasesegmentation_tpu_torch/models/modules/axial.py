@@ -1,9 +1,13 @@
-"""Axial and cross-axial attention, eval path (torch, NCHW blocks).
+"""Axial and cross-axial attention (torch, NCHW blocks).
 
 Counterpart of ``eyediseasesegmentation_tpu/models/modules/axial.py``.
-Sequences are (batch, length, channels), as in the JAX package; the three
-BatchNorms of an attention fold into affines and the whole attention is one
-call of ``ops.axial_attention`` (the CUDA kernel on a GPU tensor).
+Sequences are (batch, length, channels), as in the JAX package. In eval the
+three BatchNorms of an attention fold into affines and the whole attention
+is one call of ``ops.axial_attention`` (the CUDA kernel on a GPU tensor). In
+training the attention runs as plain differentiable ops (the kernel has no
+backward): the norms use fp32 batch statistics, normalise with the biased
+variance and move their running variance by the **unbiased** one, n/(n−1),
+as the JAX package's inline ``_Norm`` does.
 
 Parameters keep the layout that op takes: ``to_qkv`` / ``to_kq`` / ``to_v``
 are (in, out) matrices whose output channel is q_idx·H + h, and
@@ -20,10 +24,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import axial_attention as AK
-from .layers import BatchNorm, EvalModule, conv2d
+from .layers import BatchNorm, PortModule, batch_moments, conv2d, wide
 
 
-class RelativePosEnc2D(EvalModule):
+class RelativePosEnc2D(PortModule):
     """Learned relative position embeddings: (r_q, r_k, r_v) of shapes
     (dkq, dim, dim), (dkq, dim, dim), (dv, dim, dim) gathered from one table
     with index i − j + dim − 1."""
@@ -43,7 +47,54 @@ class RelativePosEnc2D(EvalModule):
         return emb[:kq], emb[kq:2 * kq], emb[2 * kq:]
 
 
-class AxialAttention(EvalModule):
+def norm_train(norm: BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """An attention's inline norm in training: fp32 statistics over every
+    axis but the last, normalised with the biased variance; the running
+    variance moves by the unbiased one (momentum 0.9 in flax's sense).
+    Returns the input's dtype."""
+    axes = tuple(range(x.ndim - 1))
+    xf, mean, var = batch_moments(x, axes)
+    n = x.numel() // x.shape[-1]
+    with torch.no_grad():
+        m = norm.momentum
+        norm.running_mean.copy_(m * norm.running_mean + (1 - m) * mean)
+        norm.running_var.copy_(m * norm.running_var
+                               + (1 - m) * var * (n / max(n - 1, 1)))
+    y = (xf - mean) * torch.rsqrt(var + 1e-5) * norm.weight + norm.bias
+    return y.to(x.dtype)
+
+
+def attention_core_train(q, k, v, r_q, r_k, r_v, logit_norm: BatchNorm,
+                         dtype):
+    """The attention products in training. q, k: (b, L, dkq, H); v:
+    (b, L, dv, H); r_*: (d, L, L). The three logit maps are stacked and
+    normalised jointly over channel order (h, n), summed, and softmaxed in
+    fp32 (or wider). Returns (out, kv), each (b, H, dv, L)."""
+    qr = torch.einsum("bdih,idj->bhdj", q, r_q.to(dtype))
+    kr = torch.einsum("bdih,idj->bhdj", k, r_k.to(dtype))
+    dots = torch.einsum("bdih,bjih->bhdj", q, k)
+    stacked = torch.stack([qr, kr, dots], -1)           # (b, H, d, j, 3)
+    b, h, d, j, _ = stacked.shape
+    flat = stacked.permute(0, 2, 3, 1, 4).reshape(b, d, j, h * 3)
+    flat = norm_train(logit_norm, flat)
+    logits = flat.reshape(b, d, j, h, 3).sum(-1).permute(0, 3, 1, 2)
+    attn = torch.softmax(logits.to(wide(logits.dtype)), -1).to(dtype)
+    out = torch.einsum("bhdj,bjih->bhid", attn, v)
+    kv = torch.einsum("bhdj,idj->bhid", attn, r_v.to(dtype))
+    return out, kv
+
+
+def merge_outputs_train(out, kv, out_norm: BatchNorm):
+    """The joint norm of the stacked (kv, out), channel order (n, h, i),
+    then their sum: (b, H, dv, L) each → (b, L, H·dv)."""
+    b, h, dv, L = out.shape
+    stacked = torch.stack([kv, out], 1)                  # (b, 2, H, dv, L)
+    flat = stacked.permute(0, 4, 1, 2, 3).reshape(b, L, 2 * h * dv)
+    flat = norm_train(out_norm, flat)
+    return flat.reshape(b, L, 2, h * dv).sum(2)
+
+
+class AxialAttention(PortModule):
     """Single-axis self-attention with relative position terms.
     Input/output (b, L, C) with L == ``dim`` and C == ``in_channels``."""
 
@@ -61,6 +112,16 @@ class AxialAttention(EvalModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r_q, r_k, r_v = self.pos_enc()
+        if self.training:
+            dt, dkq = self.dtype, self.dkq
+            qkv = norm_train(self.to_qkv_bn, x.to(dt) @ self.to_qkv.to(dt))
+            b, L, _ = qkv.shape
+            # channel = q_idx·H + h
+            qkv = qkv.reshape(b, L, 2 * dkq + self.dv, self.heads)
+            out, kv = attention_core_train(
+                qkv[:, :, :dkq], qkv[:, :, dkq:2 * dkq], qkv[:, :, 2 * dkq:],
+                r_q, r_k, r_v, self.attention_norm, dt)
+            return merge_outputs_train(out, kv, self.out_norm)
         return AK.axial_attention(
             x, x, self.to_qkv, None, self.to_qkv_bn.folded(), None,
             r_q, r_k, r_v, self.attention_norm.folded(),
@@ -68,7 +129,7 @@ class AxialAttention(EvalModule):
             dv=self.dv, dtype=self.dtype)
 
 
-class CrossAxialAttention(EvalModule):
+class CrossAxialAttention(PortModule):
     """Axial attention with q, k from the decoder state and v from the skip
     (the UNet++ skip gate). x_in (b, L, C_in), skip (b, L, C_skip) →
     (b, L, C_skip)."""
@@ -91,6 +152,17 @@ class CrossAxialAttention(EvalModule):
 
     def forward(self, x_in: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         r_q, r_k, r_v = self.pos_enc()
+        if self.training:
+            dt, dkq = self.dtype, self.dkq
+            kq = norm_train(self.to_kq_bn, x_in.to(dt) @ self.to_kq.to(dt))
+            v = norm_train(self.to_v_bn, skip.to(dt) @ self.to_v.to(dt))
+            b, L, _ = kq.shape
+            kq = kq.reshape(b, L, 2 * dkq, self.heads)
+            out, kv = attention_core_train(
+                kq[:, :, :dkq], kq[:, :, dkq:],
+                v.reshape(b, L, self.dv, self.heads), r_q, r_k, r_v,
+                self.attention_norm, dt)
+            return merge_outputs_train(out, kv, self.out_norm)
         return AK.axial_attention(
             x_in, skip, self.to_kq, self.to_v, self.to_kq_bn.folded(),
             self.to_v_bn.folded(), r_q, r_k, r_v,
@@ -115,7 +187,7 @@ def rows_to_nchw(rows: torch.Tensor, b: int, h: int, w: int) -> torch.Tensor:
     return rows.reshape(b, h, w, rows.shape[-1]).permute(0, 3, 1, 2)
 
 
-class AxialAttentionBlock(EvalModule):
+class AxialAttentionBlock(PortModule):
     """Residual height-then-width axial attention block, NCHW, attending at
     width 512. With ``down_sample`` the attention branch is avg-pooled and
     the shortcut is a 3×3/2 conv with symmetric pad 1 and a bias."""

@@ -1,12 +1,16 @@
-"""Shared model building blocks (torch, NCHW, eval only).
+"""Shared model building blocks (torch, NCHW).
 
 Counterpart of ``eyediseasesegmentation_tpu/models/modules/layers.py``. Every
 module keeps its parameters in fp32 and computes in ``dtype``: weights are cast
 at each call, as the flax modules do with ``param_dtype=float32``. Submodules
 carry the flax scope names, so ``convert.flax_to_torch`` is a path walk.
 
-Only inference is ported: modules are built in eval mode, and a forward in
-training mode raises (see ROADMAP.md, "Train step").
+Modules are built in eval mode; ``.train()`` switches them to the JAX
+package's ``train=True`` behaviour: batch statistics in the BatchNorms (and
+their running update), DropBlock in ``ConvBNReLU`` and dropout in the
+classification head. The noise of those draws comes from the module's
+``generator`` (see :func:`set_generator`); the packed layouts of the JAX
+package (``packed > 1``) are exact rewrites with no counterpart here.
 """
 
 from __future__ import annotations
@@ -20,21 +24,37 @@ import torch.nn.functional as F
 Parts = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def _refuse_training(module, args):
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only inference is ported; training "
-            "comes with the train-step port (ROADMAP.md, 'Train step')")
-
-
-class EvalModule(nn.Module):
-    """Base of the port's modules: built in eval mode; a forward after
-    ``.train()`` raises NotImplementedError."""
+class PortModule(nn.Module):
+    """Base of the port's modules: built in eval mode (call ``.train()``
+    for the train forward)."""
 
     def __init__(self):
         super().__init__()
         self.training = False
-        self.register_forward_pre_hook(_refuse_training)
+
+
+class NoiseModule(PortModule):
+    """A module whose train forward draws noise from ``self.generator``
+    (``None``: the default generator of the input's device)."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator: Optional[torch.Generator] = None
+
+
+def set_generator(model: nn.Module,
+                  generator: Optional[torch.Generator]) -> None:
+    """Give every noise-drawing module of ``model`` the generator its next
+    train forwards draw from (on the device of the model's inputs)."""
+    for mod in model.modules():
+        if isinstance(mod, NoiseModule):
+            mod.generator = generator
+
+
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """fp32, or the dtype itself where it is wider (fp64): the dtype of
+    statistics, gate sums and logits, so that an fp64 model stays fp64."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
@@ -46,13 +66,29 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, stride, padding)
 
 
-class BatchNorm(EvalModule):
-    """Eval BatchNorm2d: running stats and affine folded in fp32 into one
-    (scale, bias), applied in the compute dtype."""
+def batch_moments(x: torch.Tensor, axes) -> tuple:
+    """Batch mean and biased variance ``E[x²] − E[x]²`` over ``axes`` in
+    fp32 (fp64 for an fp64 input), as the JAX package computes them."""
+    xf = x.to(wide(x.dtype))
+    mean = xf.mean(axes)
+    return xf, mean, (xf * xf).mean(axes) - mean * mean
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+
+class BatchNorm(PortModule):
+    """BatchNorm2d with fp32 statistics.
+
+    Eval (and ``frozen``, the reference's frozen BN on pretrained layers):
+    running stats and affine folded in fp32 into one (scale, bias), applied
+    in the compute dtype. Train: batch mean and **biased** variance in fp32
+    over (N, H, W); the running stats move by ``ra = 0.9·ra + 0.1·batch``
+    (flax ``momentum=0.9``), the variance biased too, unlike
+    ``nn.BatchNorm2d``, which stores the unbiased one. The output is cast to
+    the compute dtype."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 frozen: bool = False, momentum: float = 0.9):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.frozen, self.momentum = dtype, frozen, momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -63,27 +99,87 @@ class BatchNorm(EvalModule):
         return scale, self.bias - self.running_mean * scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale, bias = self.folded()
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        y = x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
+        if not self.training or self.frozen:
+            scale, bias = self.folded()
+            y = (x * scale.to(x.dtype).view(shape)
+                 + bias.to(x.dtype).view(shape))
+            return y.to(self.dtype)
+        axes = (0,) + tuple(range(2, x.ndim))
+        xf, mean, var = batch_moments(x, axes)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        y = ((xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + 1e-5)
+             * self.weight.view(shape) + self.bias.view(shape))
         return y.to(self.dtype)
 
 
-class ConvBNReLU(EvalModule):
-    """conv 3×3 (SAME, no bias) → [DropBlock: identity at eval] → BN → ReLU.
-    A list input is the channel concat of its parts."""
+def dropblock_gamma(drop_prob: float, h: int, w: int,
+                    block_size: int = 7) -> float:
+    """Bernoulli rate of the block centres (timm DropBlock2d), the block
+    clipped to the map."""
+    bs = min(block_size, h, w)
+    valid = (h - bs + 1) * (w - bs + 1)
+    return drop_prob * h * w / (bs ** 2) / max(valid, 1)
+
+
+def drop_block(x: torch.Tensor, centres: torch.Tensor,
+               block_size: int = 7) -> torch.Tensor:
+    """Apply DropBlock with the drawn block ``centres`` ((N, 1, H, W) in
+    {0, 1}): centres grow to ``block_size``² blocks by a stride-1 SAME
+    max-pool, the kept elements are renormalised by
+    ``keep.numel() / max(Σ keep, 1)``."""
+    h, w = x.shape[2], x.shape[3]
+    bs = min(block_size, h, w)
+    lo = (bs - 1) // 2
+    c = F.pad(centres.to(x.dtype), (lo, bs - 1 - lo, lo, bs - 1 - lo))
+    keep = 1.0 - F.max_pool2d(c, bs, stride=1)
+    norm = keep.numel() / torch.clamp(keep.sum(), min=1.0)
+    return x * keep * norm.to(x.dtype)
+
+
+class DropBlock2d(NoiseModule):
+    """Structured dropout over contiguous blocks (timm semantics), the
+    identity in eval or at ``drop_prob`` 0. Train: block centres drawn
+    Bernoulli(:func:`dropblock_gamma`) per (sample, pixel), shared across
+    channels, then :func:`drop_block`."""
+
+    def __init__(self, drop_prob: float = 0.1, block_size: int = 7):
+        super().__init__()
+        self.drop_prob, self.block_size = drop_prob, block_size
+
+    def draw(self, x: torch.Tensor) -> torch.Tensor:
+        n, _, h, w = x.shape
+        gamma = dropblock_gamma(self.drop_prob, h, w, self.block_size)
+        u = torch.rand((n, 1, h, w), generator=self.generator,
+                       device=x.device)
+        return (u < gamma).to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.drop_prob <= 0.0:
+            return x
+        return drop_block(x, self.draw(x), self.block_size)
+
+
+class ConvBNReLU(PortModule):
+    """conv 3×3 (SAME, no bias) → DropBlock → BN → ReLU. A list input is
+    the channel concat of its parts."""
 
     def __init__(self, cin: int, cout: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 drop_block_prob: float = 0.1):
         super().__init__()
         self.dtype = dtype
         self.conv = nn.Conv2d(cin, cout, 3, bias=False)
+        self.drop_block = DropBlock2d(drop_block_prob, block_size=7)
         self.bn = BatchNorm(cout, dtype)
 
     def forward(self, x: Parts) -> torch.Tensor:
         x = torch.cat([p.to(self.dtype) for p in output_parts(x)], 1)
         y = conv2d(x, self.conv, self.dtype, padding=1)
-        return torch.relu(self.bn(y))
+        return torch.relu(self.bn(self.drop_block(y)))
 
     def folded_params(self):
         """(conv weight OIHW, folded BN scale, folded BN bias), all fp32,
@@ -92,7 +188,7 @@ class ConvBNReLU(EvalModule):
         return self.conv.weight, scale, bias
 
 
-class SEBlock(EvalModule):
+class SEBlock(PortModule):
     """Squeeze-excite on pooled means (two Dense layers, reduction 16)."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
@@ -111,7 +207,7 @@ class SEBlock(EvalModule):
         return x * torch.sigmoid(s)[:, :, None, None]
 
 
-class SCSEAttention(EvalModule):
+class SCSEAttention(PortModule):
     """Concurrent spatial & channel SE (smp ``Attention('scse')``).
 
     A list input is the channel concat of its parts and returns the gated
@@ -163,7 +259,7 @@ class SCSEAttention(EvalModule):
         for p in parts:
             c = p.shape[1]
             tp = (p.to(dt) * w[off:off + c, None, None]).sum(
-                1, keepdim=True, dtype=torch.float32)
+                1, keepdim=True, dtype=wide(dt))
             t = tp if t is None else t + tp
             off += c
         gate_s = torch.sigmoid(t + self.sse.bias.to(t.dtype))
@@ -187,8 +283,9 @@ def Attention(attention_type: Optional[str], channels: int,
     raise ValueError(f"Unknown attention type {attention_type}")
 
 
-class SegmentationHead(EvalModule):
-    """3×3 conv (SAME, bias) to class logits, returned in fp32."""
+class SegmentationHead(PortModule):
+    """3×3 conv (SAME, bias) to class logits, returned in fp32 (or
+    wider)."""
 
     def __init__(self, cin: int, classes: int = 1,
                  dtype: torch.dtype = torch.float32):
@@ -197,24 +294,32 @@ class SegmentationHead(EvalModule):
         self.conv = nn.Conv2d(cin, classes, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.conv, self.dtype, padding=1).to(torch.float32)
+        y = conv2d(x, self.conv, self.dtype, padding=1)
+        return y.to(wide(self.dtype))
 
 
-class ClassificationHead(EvalModule):
-    """Global average pool → [dropout: identity at eval] → linear, in
-    fp32."""
+class ClassificationHead(NoiseModule):
+    """Global average pool → dropout (``dropout``, train only) → linear,
+    returned in fp32 (or wider). The dropout keeps each pooled value with
+    probability ``1 − dropout`` and scales the kept ones by its inverse, as
+    flax's ``nn.Dropout``."""
 
-    def __init__(self, cin: int, classes: int = 1,
+    def __init__(self, cin: int, classes: int = 1, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         self.fc1 = nn.Linear(cin, classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean((2, 3))
+        if self.training and self.dropout > 0.0:
+            keep = 1.0 - self.dropout
+            u = torch.rand(s.shape, generator=self.generator,
+                           device=s.device)
+            s = torch.where(u < keep, s / keep, torch.zeros_like(s))
         dt = self.dtype
         s = F.linear(s.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt))
-        return s.to(torch.float32)
+        return s.to(wide(dt))
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""UnetPlusPlusStar, the flagship (torch, NCHW, eval only).
+"""UnetPlusPlusStar, the flagship (torch, NCHW).
 
 Counterpart of ``eyediseasesegmentation_tpu/models/unetplusplusstar.py``:
 BoTSER50 axial encoder, the star UNet++ decoder and the segmentation,
@@ -13,16 +13,18 @@ import torch
 
 from .decoders import UnetPlusPlusDecoder
 from .encoders import get_encoder
-from .modules.layers import ClassificationHead, EvalModule, SegmentationHead
+from .modules.layers import ClassificationHead, PortModule, SegmentationHead
 
 
-class UnetPlusPlusStar(EvalModule):
+class UnetPlusPlusStar(PortModule):
     """NCHW input → fp32 logits (N, classes, H, W); with deep supervision
     (mask, [ds3, ds2, ds1]); with ``clf_head`` the classification logits are
     appended to the output. ``pallas_tail`` (``True``/``"v1"``, ``"pair"``,
     ``"pair_up"``) routes the decoder's scSE tail nodes at output height
     ≥ ``fast_min_res`` through the fused decode-node kernels
-    (``models/decoders.py``)."""
+    (``models/decoders.py``) in eval. In training (``.train()``) the
+    decoder's ConvBNReLUs apply DropBlock at ``drop_block_prob`` and the
+    classification head dropout 0.1; ``remat`` is not ported and raises."""
 
     def __init__(self, encoder_name: str = "BoTSER50_Axial_Imagenet_3",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
@@ -30,20 +32,22 @@ class UnetPlusPlusStar(EvalModule):
                  base_dim: int = 32, classes: int = 1,
                  deep_supervision: bool = False, clf_head: bool = False,
                  pallas_tail: Any = None, fast_min_res: int = 512,
+                 drop_block_prob: float = 0.1, remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.deep_supervision, self.clf_head = deep_supervision, clf_head
-        self.encoder, enc_channels = get_encoder(encoder_name,
-                                                 base_dim=base_dim, dtype=dtype)
+        self.encoder, enc_channels = get_encoder(
+            encoder_name, base_dim=base_dim, dtype=dtype, remat=remat)
         if clf_head:
             self.classification_head = ClassificationHead(
-                enc_channels[-1], classes, dtype=dtype)
+                enc_channels[-1], classes, dropout=0.1, dtype=dtype)
         self.decoder = UnetPlusPlusDecoder(
             enc_channels, decoder_channels, base_dim=base_dim,
             attention_type=decoder_attention_type,
             deep_supervision=deep_supervision, pallas_tail=pallas_tail,
-            fast_min_res=fast_min_res, dtype=dtype)
+            fast_min_res=fast_min_res, drop_block_prob=drop_block_prob,
+            dtype=dtype)
         self.segmentation_head = SegmentationHead(
             decoder_channels[-1], classes, dtype=dtype)
         if deep_supervision:
@@ -52,11 +56,7 @@ class UnetPlusPlusStar(EvalModule):
                 self.add_module(f"deep_head{i}", SegmentationHead(
                     enc_channels[1], classes, dtype=dtype))
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        if train:
-            raise NotImplementedError(
-                "only inference is ported; training comes with the "
-                "train-step port (ROADMAP.md, 'Train step')")
+    def forward(self, x: torch.Tensor):
         features = self.encoder(x)
         clf = (self.classification_head(features[-1]) if self.clf_head
                else None)

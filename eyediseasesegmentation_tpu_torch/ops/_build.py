@@ -19,6 +19,28 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
+def refuse_autograd(name: str, *inputs) -> None:
+    """Raise when a kernel wrapper would have to be differentiated: the
+    kernels have no backward, so under grad mode an input that requires
+    grad would come back as a tensor with no ``grad_fn`` and silently cut
+    the graph. Checked on every device, before any library is loaded."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(inputs)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: an input requires grad, but the kernel has no "
+                "backward; call it under torch.no_grad() / "
+                "torch.inference_mode() (a model in eval mode), or take the "
+                "train path")
+
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -151,7 +151,10 @@ def axial_attention(x_q, x_v, w_kq, w_v, kq_aff, v_aff, r_q, r_k, r_v,
 
     Self-attention: pass ``w_v=None`` with ``w_kq`` holding the packed qkv
     projection. Returns (b, L, heads·dv) in ``dtype``, head-major channels.
+    Raises under grad mode when an input requires grad (no backward).
     """
+    _build.refuse_autograd("axial_attention", x_q, x_v, w_kq, w_v, kq_aff,
+                           v_aff, r_q, r_k, r_v, logit_aff, out_aff)
     if x_q.device.type == "cpu":
         return axial_attention_reference(
             x_q, x_v, w_kq, w_v, kq_aff, v_aff, r_q, r_k, r_v, logit_aff,

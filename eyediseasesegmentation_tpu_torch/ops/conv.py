@@ -72,9 +72,11 @@ def conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor,
     """Fused 3×3 SAME conv + per-channel affine + ReLU.
 
     x: (N, Cin, H, W); w: (Cout, Cin, 3, 3). ``tile_rows`` (the TPU kernel's
-    row-tile knob) is accepted and ignored.
+    row-tile knob) is accepted and ignored. Raises under grad mode when an
+    input requires grad (no backward).
     """
     del tile_rows
+    _build.refuse_autograd("conv3x3_bn_relu", x, w, scale, bias)
     if not on_cuda("conv3x3_bn_relu", x):
         return conv3x3_bn_relu_reference(x, w, scale, bias, relu)
     global launches, launches_sm90, launches_wmma

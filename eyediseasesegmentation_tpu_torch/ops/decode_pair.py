@@ -134,10 +134,13 @@ def scse_conv3x3_pair(parts: Sequence[torch.Tensor], gate_c, sse_kernel,
     TPU kernel's row-tile knob) is accepted and ignored.
 
     Returns ``(y2, csum)``: y2 (B, cout, H, W) in the parts' dtype, csum
-    (B, cout) fp32 = Σ_hw y2.
+    (B, cout) fp32 = Σ_hw y2. Raises under grad mode when an input
+    requires grad (no backward).
     """
     del tile_rows
     parts = list(parts)
+    _build.refuse_autograd("scse_conv3x3_pair", parts, gate_c, sse_kernel,
+                           sse_bias, k1, scale1, bias1, k2, scale2, bias2)
     if not on_cuda("scse_conv3x3_pair", parts[0]):
         return scse_conv3x3_pair_reference(
             parts, gate_c, sse_kernel, sse_bias, k1, scale1, bias1, k2,

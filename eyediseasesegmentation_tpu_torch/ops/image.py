@@ -1,15 +1,25 @@
 """Image primitives on torch tensors, in the JAX package's channel-last layout.
 
-Counterpart of ``eyediseasesegmentation_tpu/ops/image.py`` for the inference
-path: resize / pad / crop, normalization and the D4 view family. Images are
-(..., H, W, C), so a batch (N, H, W, C) goes through in one call where the
-JAX package vmaps; a map without channels gets a trailing axis of 1.
+Counterpart of ``eyediseasesegmentation_tpu/ops/image.py``: resize / pad /
+crop, normalization, the D4 view family, and the augmentation ops of the
+``normal`` and ``advanced`` policies. Images are (..., H, W, C), so a batch
+(N, H, W, C) goes through in one call where the JAX package vmaps; a map
+without channels gets a trailing axis of 1.
+
+Each augmentation op is split in two: a ``draw_*`` that draws its scalars
+(Python floats, from a CPU ``torch.Generator``, so drawing never waits for
+the device) or its noise field (on the image's device, from a generator
+there), and an ``apply_*`` that takes the drawn values. JAX's PRNG streams
+cannot be reproduced in torch, so the parity tests feed the values a JAX
+key draws to the ``apply_*`` functions.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,11 +34,26 @@ def longest_max_size_shape(h: int, w: int, max_size: int) -> Tuple[int, int]:
     return max(1, round(h * scale)), max(1, round(w * scale))
 
 
-def resize(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+def _nearest_index(n_out: int, n_in: int, device) -> torch.Tensor:
+    """``jax.image.resize``'s nearest source index: floor((i + 0.5)·in/out)
+    in fp32."""
+    i = torch.arange(n_out, dtype=torch.float32, device=device)
+    return torch.floor((i + 0.5) * n_in / n_out).long()
+
+
+def resize(img: torch.Tensor, out_hw: Tuple[int, int],
+           method: str = "linear") -> torch.Tensor:
     """Bilinear resize at half-pixel centres with no antialias prefilter
-    (cv2.INTER_LINEAR, ``jax.image.resize(..., antialias=False)``)."""
+    (cv2.INTER_LINEAR, ``jax.image.resize(..., antialias=False)``), or
+    ``method="nearest"`` with ``jax.image.resize``'s nearest indices."""
     if tuple(img.shape[-3:-1]) == tuple(out_hw):
         return img
+    if method == "nearest":
+        h, w = img.shape[_H], img.shape[_W]
+        iy = _nearest_index(out_hw[0], h, img.device)
+        ix = _nearest_index(out_hw[1], w, img.device)
+        return img.index_select(img.ndim + _H, iy).index_select(
+            img.ndim + _W, ix)
     x = img.reshape((-1,) + tuple(img.shape[-3:])).permute(0, 3, 1, 2)
     y = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                       align_corners=False, antialias=False)
@@ -49,10 +74,11 @@ def pad_to(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return out
 
 
-def longest_max_size_pad(img: torch.Tensor, size: int) -> torch.Tensor:
+def longest_max_size_pad(img: torch.Tensor, size: int,
+                         method: str = "linear") -> torch.Tensor:
     """LongestMaxSize(size) then centre PadIfNeeded(size, size)."""
     nh, nw = longest_max_size_shape(img.shape[_H], img.shape[_W], size)
-    return pad_to(resize(img, (nh, nw)), (size, size))
+    return pad_to(resize(img, (nh, nw), method), (size, size))
 
 
 def center_crop(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -60,6 +86,16 @@ def center_crop(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     top = (img.shape[_H] - out_hw[0]) // 2
     left = (img.shape[_W] - out_hw[1]) // 2
     return img[..., top:top + out_hw[0], left:left + out_hw[1], :]
+
+
+LUMA = (0.2989, 0.5870, 0.1140)
+
+
+def rgb_to_gray(img: torch.Tensor, keep_channels: bool = True) -> torch.Tensor:
+    """Luma grayscale of the first three channels."""
+    luma = torch.tensor(LUMA, dtype=img.dtype, device=img.device)
+    g = (img[..., :3] * luma).sum(-1)
+    return g[..., None] if keep_channels else g
 
 
 def normalize(img: torch.Tensor, mean, std) -> torch.Tensor:
@@ -109,3 +145,135 @@ def d4_inverse(views: torch.Tensor) -> torch.Tensor:
             out.append(v)
             i += 1
     return torch.stack(out, 0)
+
+
+# ---------------------------------------------------------------------------
+# Train-time augmentation: draws and applies
+# ---------------------------------------------------------------------------
+
+def uniform(gen: torch.Generator, lo: float, hi: float) -> float:
+    """U(lo, hi) as a Python float (an fp32 value) from a CPU
+    generator."""
+    u = torch.rand((), generator=gen).item()
+    return float(np.float32(u) * np.float32(hi - lo) + np.float32(lo))
+
+
+def randint(gen: torch.Generator, lo: int, hi: int) -> int:
+    """A uniform integer in [lo, hi) from a CPU generator."""
+    return int(torch.randint(lo, hi, (), generator=gen).item())
+
+
+def _clip(img: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(img, 0.0, 255.0)
+
+
+def draw_brightness(gen, limit: float = 0.2) -> float:
+    return uniform(gen, -limit, limit)
+
+
+def apply_brightness(img, alpha: float):
+    """albumentations RandomBrightness: img · (1 + alpha)."""
+    return _clip(img * (1.0 + alpha))
+
+
+def draw_contrast(gen, limit: float = 0.2) -> float:
+    return float(np.float32(1.0) + np.float32(uniform(gen, -limit, limit)))
+
+
+def apply_contrast(img, alpha: float):
+    """albumentations RandomContrast: mean-preserving scale by ``alpha``
+    about the mean luma (the mean value for other channel counts)."""
+    mean = (rgb_to_gray(img, keep_channels=False).mean()
+            if img.shape[-1] == 3 else img.mean())
+    return _clip(img * alpha + mean * (1.0 - alpha))
+
+
+def draw_gamma(gen, gamma_limit=(0.8, 1.2)) -> float:
+    return uniform(gen, gamma_limit[0], gamma_limit[1])
+
+
+def apply_gamma(img, gamma: float):
+    """albumentations RandomGamma."""
+    return _clip(((img / 255.0) ** gamma) * 255.0)
+
+
+def draw_gauss_noise(gen, shape, noise_gen: Optional[torch.Generator] = None,
+                     device=None, var_limit=(10.0, 50.0)):
+    """(variance, unit normal field of ``shape`` on ``device`` drawn from
+    ``noise_gen``)."""
+    var = uniform(gen, var_limit[0], var_limit[1])
+    return var, torch.randn(shape, generator=noise_gen, device=device)
+
+
+def apply_gauss_noise(img, var: float, z: torch.Tensor):
+    """albumentations GaussNoise: img + N(0, var)."""
+    return _clip(img + z * math.sqrt(var))
+
+
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def warp_bilinear(img: torch.Tensor, coords_y: torch.Tensor,
+                  coords_x: torch.Tensor, order: int = 1) -> torch.Tensor:
+    """Sample an HW(C) image at float coordinates (H', W') with edge clamp:
+    bilinear (``order=1``) or nearest, halves rounded away from zero
+    (``order=0``), term for term as ``jax.scipy.ndimage.map_coordinates``
+    with ``mode="nearest"``."""
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w = img.shape[0], img.shape[1]
+
+    def nodes(c):
+        if order == 0:
+            return [(_round_half_away(c).long(), None)]
+        lower = torch.floor(c)
+        up = c - lower
+        return [(lower.long(), 1.0 - up), (lower.long() + 1, up)]
+
+    out = None
+    for iy, wy in nodes(coords_y):
+        for ix, wx in nodes(coords_x):
+            v = img[iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
+            if wy is not None:
+                v = (wy * wx)[..., None] * v
+            out = v if out is None else out + v
+    return out[..., 0] if squeeze else out
+
+
+def draw_shift_scale_rotate(gen, h: int, w: int, shift_limit=0.0625,
+                            scale_limit=0.1, rotate_limit=45.0):
+    """(angle in radians, scale, dy, dx in pixels): albumentations
+    ShiftScaleRotate defaults (±45°, ±10 %, ±6.25 %), each computed in fp32
+    from its uniform draw, as the JAX op computes it."""
+    f32 = np.float32
+    angle = f32(uniform(gen, -rotate_limit, rotate_limit)) * f32(
+        math.pi) / f32(180.0)
+    scale = f32(1.0) + f32(uniform(gen, -scale_limit, scale_limit))
+    dy = f32(uniform(gen, -shift_limit, shift_limit)) * f32(h)
+    dx = f32(uniform(gen, -shift_limit, shift_limit)) * f32(w)
+    return float(angle), float(scale), float(dy), float(dx)
+
+
+def apply_shift_scale_rotate(img, mask, angle: float, scale: float,
+                             dy: float, dx: float):
+    """Rotate by ``angle`` and scale about the centre, then shift, by the
+    inverse map output → input; the image bilinear, the mask (if any)
+    nearest."""
+    h, w = img.shape[0], img.shape[1]
+    f32 = dict(dtype=torch.float32, device=img.device)
+    gy = torch.arange(h, **f32)[:, None].expand(h, w)
+    gx = torch.arange(w, **f32)[None, :].expand(h, w)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    a = torch.tensor(angle, **f32)
+    cos, sin = torch.cos(a), torch.sin(a)
+    oy = gy - cy - torch.tensor(dy, **f32)
+    ox = gx - cx - torch.tensor(dx, **f32)
+    s = torch.tensor(scale, **f32)
+    sy = (cos * oy - sin * ox) / s + cy
+    sx = (sin * oy + cos * ox) / s + cx
+    out = warp_bilinear(img, sy, sx)
+    if mask is None:
+        return out
+    return out, warp_bilinear(mask, sy, sx, order=0)

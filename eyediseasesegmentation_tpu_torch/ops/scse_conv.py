@@ -290,10 +290,13 @@ def scse_conv3x3_bn_relu(parts: Sequence[torch.Tensor], gate_c, sse_kernel,
     (cout,) folded BN (None = identity). ``gated=False`` skips the gate.
     ``tile_rows`` (the TPU kernel's row-tile knob) is accepted and ignored:
     the CUDA kernel's tile is fixed. Returns (B, cout, H, W) in the parts'
-    dtype.
+    dtype. Raises under grad mode when an input requires grad (no
+    backward).
     """
     del tile_rows
     parts = list(parts)
+    _build.refuse_autograd("scse_conv3x3_bn_relu", parts, gate_c,
+                           sse_kernel, sse_bias, k3, scale, bias)
     if not on_cuda("scse_conv3x3_bn_relu", parts[0]):
         return scse_conv3x3_bn_relu_reference(
             parts, gate_c, sse_kernel, sse_bias, k3, scale, bias, relu, gated)

@@ -17,8 +17,15 @@ joined again on load.
 Leaves load as numpy arrays, except those whose dtype name is ``bfloat16``:
 numpy has no such type without ``ml_dtypes``, so their bytes are read as
 ``uint16`` and viewed as a ``torch.bfloat16`` tensor of the same shape (a
-0-d tensor for an ext 3 scalar). ``restore_into`` (JAX pytrees) is not
-ported.
+0-d tensor for an ext 3 scalar).
+
+``best.ckpt`` / ``last.ckpt`` hold ``{"model_state_dict": {"params",
+"batch_stats"}, "metric", "epoch"}`` in the JAX layout
+(``convert.torch_to_flax``), so the JAX package reads a run the port
+trained. ``best_full.ckpt`` holds the port's own resume state
+(:func:`resume_state`): the model's ``state_dict``, the optimizer state by
+parameter name, the step and the epoch; :func:`restore_into` reads it back.
+A JAX ``best_full.ckpt`` (optax state trees) is not read (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -373,3 +380,38 @@ def load_checkpoint(path: Union[str, Path]) -> dict:
     """The raw tree: nested dicts of numpy arrays (``torch.bfloat16``
     tensors for bfloat16 leaves)."""
     return msgpack_restore(bytearray(Path(path).read_bytes()))
+
+
+# ---------------------------------------------------------------------------
+# Resume state
+# ---------------------------------------------------------------------------
+
+def resume_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 step: int, epoch: int) -> dict:
+    """The tree ``best_full.ckpt`` holds: ``model_state_dict`` (the
+    model's ``state_dict``), ``optimizer`` (each parameter's state by its
+    name), ``step`` and ``epoch``."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    opt = {names[id(p)]: dict(s) for p, s in optimizer.state.items()}
+    return {"model_state_dict": dict(model.state_dict()),
+            "optimizer": opt, "step": int(step), "epoch": int(epoch)}
+
+
+def restore_into(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 path: Union[str, Path]) -> dict:
+    """Load a :func:`resume_state` checkpoint into ``model`` and
+    ``optimizer`` (on their devices); returns ``{"step", "epoch"}``.
+    Raises when a model key or an optimizer entry has no counterpart."""
+    tree = load_checkpoint(path)
+    state = {k: torch.as_tensor(np.asarray(v))
+             for k, v in tree["model_state_dict"].items()}
+    model.load_state_dict(state)
+    params = dict(model.named_parameters())
+    for name, entries in (tree.get("optimizer") or {}).items():
+        p = params[name]
+        optimizer.state[p] = {
+            k: (None if v is None else
+                torch.as_tensor(np.asarray(v)).to(
+                    p.device if np.asarray(v).ndim else "cpu"))
+            for k, v in entries.items()}
+    return {"step": int(tree["step"]), "epoch": int(tree["epoch"])}

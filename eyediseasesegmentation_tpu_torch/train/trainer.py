@@ -1,0 +1,460 @@
+"""Training engine (torch port).
+
+Counterpart of ``eyediseasesegmentation_tpu/train/trainer.py``: ``Trainer``
+with ``train_step``, ``eval_step`` and ``fit``, and the ``train_model`` entry
+point. One train step augments on the device (the policy's Python branches,
+one sample at a time), runs the forward in the compute dtype (bf16 when
+``is_fp16``; parameters stay fp32), the compound loss with deep supervision
+on the pooled mask pyramid and the classification loss, the backward and
+the optimizer update. The host loop schedules the learning rate
+(ReduceLROnPlateau etc.), stops early (patience 20 on val dice), writes
+``best.ckpt`` / ``last.ckpt`` / ``best_full.ckpt`` and ``metrics.jsonl`` rows
+with the JAX package's keys.
+
+The train forward and backward are plain differentiable ops: the port's
+CUDA kernels have no backward, and their wrappers raise when a gradient
+would be needed. Validation runs the model in ``eval()`` under
+``torch.inference_mode()``, where the kernels run on a card. No autocast
+and no loss scale: bf16 needs none, and the JAX step has none.
+
+Not ported: ``encoder_weights`` (the ImageNet ``.pth`` import), ``remat``,
+data parallelism (``mesh_shape`` with ``data > 1``) and tile-mode data
+(ROADMAP.md); each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import time
+from collections import deque
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import models as zoo
+from ..convert import torch_to_flax
+from ..data import (OneLesionSegmentation, batch_iterator, get_datapath,
+                    get_transform, prefetch, train_val_split)
+from ..data.transforms import AugRng
+from ..models.modules.layers import set_generator, wide
+from ..ops import image as I
+from ..ops import losses as L
+from ..ops import metrics as M
+from ..optim import get_optimizer, get_scheduler, set_learning_rate
+from ..utils import fold_in, make_logdir, set_global_seed
+from .checkpoint import restore_into, resume_state, save_checkpoint
+from .param_groups import param_groups
+
+logger = logging.getLogger("eyediseasesegmentation_tpu_torch")
+
+
+def adaptive_avg_pool(mask: torch.Tensor, out_hw: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """The deep-supervision mask pyramid (reference get_pyramid,
+    train.py:428-445): average pooling of (B, 1, H, W) to each head's
+    size."""
+    rh, rw = mask.shape[2] // out_hw[0], mask.shape[3] // out_hw[1]
+    return F.avg_pool2d(mask, (rh, rw), stride=(rh, rw))
+
+
+def model_outputs(out):
+    """A model output as (final, ds list or None, clf or None)."""
+    if not isinstance(out, tuple):
+        return out, None, None
+    if len(out) == 2 and isinstance(out[1], list):
+        return out[0], out[1], None
+    if len(out) == 3:
+        return out[0], out[1], out[2]
+    return out[0], None, out[1]
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Trainer for one experiment config (the JAX ``BaseConfig`` keys). The
+    model is built with the flax initializers from ``seed``. ``device``:
+    None builds on the GPU and raises without one; pass ``"cpu"`` to train
+    on the CPU."""
+
+    configs: Dict[str, Any]
+    logdir: Optional[Path] = None
+    seed: int = 1999
+    device: Any = None
+
+    def __post_init__(self):
+        cfg = self.configs
+        if cfg.get("remat", cfg.get("is_remat", False)):
+            raise _not_ported("remat (gradient checkpointing)",
+                              "ROADMAP.md queue 1 item E")
+        if cfg.get("encoder_weights"):
+            raise _not_ported("encoder_weights (the ImageNet .pth import)",
+                              "ROADMAP.md queue 1 item E")
+        if int((cfg.get("mesh_shape") or {}).get("data", 1)) > 1:
+            raise _not_ported("data-parallel training (mesh_shape data > 1)",
+                              "ROADMAP.md queue 1 item E")
+        self.dtype = (torch.bfloat16 if cfg.get("is_fp16", True)
+                      else torch.float32)
+        params = dict(cfg.get("model_params") or {})
+        self.model = zoo.get_model(cfg["model_name"], params, training=True,
+                                   dtype=self.dtype, device=self.device)
+        # the flax initializers, from the experiment's seed (the JAX
+        # Trainer's init_state)
+        zoo.init_flax(self.model,
+                      fold_in(torch.Generator().manual_seed(self.seed), 0))
+        self.device = next(self.model.parameters()).device
+        self.deep_supervision = bool(cfg.get("deep_supervision", False)) or \
+            bool(params.get("deep_supervision", False))
+        self.scale_size = int(cfg.get("scale_size", 1024))
+        self.num_workers = int(cfg.get("num_workers", 4))
+        prep_fn, _, _ = zoo.get_preprocessing_fn(
+            cfg.get("dataset_name", "IDRiD"), cfg.get("gray", False))
+        self.transform = get_transform(cfg.get("augmentation", "advanced"))(
+            image_size=self.scale_size, preprocessing_fn=prep_fn)
+        self.criterion = dict(cfg.get("criterion") or {"bce": 1.0})
+        pos_weights = cfg.get("pos_weights") or [1.0]
+        self.loss_fn = L.compound_loss(self.criterion,
+                                       pos_weights=pos_weights)
+        self.ds_loss_fn = (L.get_loss(cfg.get("criterion_ds") or "bce",
+                                      pos_weights=pos_weights)
+                           if self.deep_supervision else None)
+        self.ds_weight = float(cfg.get("ds_weight", 1.0))
+        self.clf_weight = float(cfg.get("clf_weight", 1.0))
+        self.metric_name = cfg.get("metric", "dice")
+        self.metric_mode = cfg.get("mode", "max")
+        # finetune freezes every encoder weight (out of the optimizer, so
+        # neither the weights nor their optimizer state move); finetune and
+        # a pretrained-encoder import also restore the encoder's BN
+        # statistics after each step, while those BNs (not frozen ones)
+        # still normalise with batch statistics
+        self.finetune = bool(cfg.get("finetune", False))
+        self.freeze_bn_scopes = tuple(cfg.get(
+            "freeze_bn_scopes",
+            ("encoder",) if (self.finetune or cfg.get("encoder_weights"))
+            else ()))
+        self.frozen_param_scopes = ("encoder",) if self.finetune else ()
+        # decoded pixels ship to the device as uint8 and promote there;
+        # ``gray`` makes non-integral host floats, which keep fp32
+        self._uint8_wire = not bool(cfg.get("gray", False))
+        self.optimizer = get_optimizer(
+            cfg.get("optimizer", "adamw"),
+            param_groups(self.model, cfg["model_name"],
+                         float(cfg.get("weight_decay", 1e-5)),
+                         self.frozen_param_scopes),
+            learning_rate=float(cfg.get("learning_rate", 1e-3)))
+        self._frozen_stats = [
+            b for name, b in self.model.named_buffers()
+            if name.split(".")[0] in self.freeze_bn_scopes
+            and name.rsplit(".", 1)[-1] in ("running_mean", "running_var")]
+        self.step = 0
+
+    # ------------------------------------------------------------------
+    def _wire(self, a: np.ndarray) -> torch.Tensor:
+        """A host batch on the device: uint8 when its values are exactly
+        integral 0-255 (falls back to fp32 for good otherwise)."""
+        if self._uint8_wire and a.dtype != np.uint8:
+            u8 = a.astype(np.uint8)
+            if (u8 == a).all():
+                a = u8
+            else:
+                self._uint8_wire = False
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def compute_loss(self, out, m4: torch.Tensor):
+        """(total, parts, final) of the model output against the (B, 1, H,
+        W) mask: the compound loss on fp32 (or wider) logits, ``ds_weight``
+        × the DS loss on each head's pooled mask, and the classification
+        loss on ``mask.sum() > 0``."""
+        final, ds, clf = model_outputs(out)
+        total, parts = self.loss_fn(final.to(wide(final.dtype)), m4)
+        if self.deep_supervision and ds is not None:
+            for d in ds:
+                pyr = adaptive_avg_pool(m4, tuple(d.shape[2:]))
+                total = total + self.ds_weight * self.ds_loss_fn(
+                    d.to(wide(d.dtype)), pyr)
+        if clf is not None:
+            label = (m4.sum((1, 2, 3)) > 0).to(clf.dtype)
+            clf_loss = L.soft_bce_with_logits(clf.reshape(-1), label)
+            parts = {**parts, "clf": clf_loss}
+            total = total + self.clf_weight * clf_loss
+        return total, parts, final
+
+    def step_generators(self, epoch_gen: torch.Generator):
+        """(augmentation draws, dropout generator) of the current step,
+        folded from the epoch's generator and the step count."""
+        g = fold_in(epoch_gen, self.step)
+        return (AugRng(fold_in(g, 0), fold_in(g, 1, self.device)),
+                fold_in(g, 2, self.device))
+
+    def train_step(self, images, masks, epoch_gen: torch.Generator,
+                   lr: float) -> Dict[str, torch.Tensor]:
+        """One step on a host batch (images (B, H, W, 3), masks (B, H, W)):
+        augment, forward, loss, backward, update. Returns device scalars."""
+        model = self.model
+        model.train()
+        aug_rng, drop_gen = self.step_generators(epoch_gen)
+        images = self._wire(images).float()
+        masks = self._wire(masks).float()
+        images, masks = self.transform.batch_train(images, masks, aug_rng)
+        x = images.permute(0, 3, 1, 2)
+        m4 = masks[:, None]
+        set_generator(model, drop_gen)
+        saved = [b.clone() for b in self._frozen_stats]
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, parts, final = self.compute_loss(model(x), m4)
+        loss.backward()
+        set_learning_rate(self.optimizer, lr)
+        self.optimizer.step()
+        with torch.no_grad():
+            for b, s in zip(self._frozen_stats, saved):
+                b.copy_(s)
+            probs = torch.sigmoid(final.float())
+            metrics = {"loss": loss.detach(),
+                       "dice": M.dice_coeff(probs, m4),
+                       "iou": M.iou_coeff(probs, m4)}
+            metrics.update({f"loss_{k}": v.detach() for k, v in parts.items()})
+        self.step += 1
+        return metrics
+
+    def eval_step(self, images, masks, n_valid: int) -> Dict[str, Any]:
+        """The eval forward of a host batch (padded to the batch size,
+        ``n_valid`` real): the test transform, the GT through
+        LongestMaxSize + pad (nearest), val loss and hard counts at 0.5,
+        the 19-threshold sweep counts of the valid images, and the raw
+        image at eval geometry for the overlays. The model is put back in
+        ``train()`` mode."""
+        model = self.model
+        model.eval()
+        try:
+            with torch.inference_mode():
+                raw = self._wire(images).float()
+                m = self._wire(masks).float()
+                m = m[..., None] if m.ndim == 3 else m
+                x = self.transform.test(raw).permute(0, 3, 1, 2)
+                out = model(x)
+                tm = I.longest_max_size_pad(m, self.scale_size,
+                                            method="nearest")
+                tm4 = tm.permute(0, 3, 1, 2)
+                val_loss, _, final = self.compute_loss(out, tm4)
+                probs = torch.sigmoid(final.float())
+                valid = (torch.arange(x.shape[0], device=x.device)
+                         < n_valid).float()
+                vmask = valid[:, None, None, None]
+                pred = (probs > 0.5).float() * vmask
+                true = (tm4 > 0.5).float() * vmask
+                tp, ap, pp, _ = M.threshold_sweep(
+                    probs, tm4, valid_mask=vmask.expand_as(probs))
+                vis = I.longest_max_size_pad(raw, self.scale_size)
+                return {"inter": (pred * true).sum(), "pred": pred.sum(),
+                        "true": true.sum(), "tp": tp, "ap": ap, "pp": pp,
+                        "loss": val_loss, "vis_img": vis,
+                        "probs": probs[:, 0], "gt": tm[..., 0]}
+        finally:
+            model.train()
+
+    # ------------------------------------------------------------------
+    def _checkpoints(self, logdir: Path, metric: float, epoch: int,
+                     best: bool) -> None:
+        weights = {"model_state_dict": torch_to_flax(self.model),
+                   "metric": float(metric), "epoch": epoch}
+        if best:
+            save_checkpoint(logdir / "checkpoints" / "best.ckpt", weights)
+        save_checkpoint(logdir / "checkpoints" / "last.ckpt", weights)
+        save_checkpoint(logdir / "checkpoints" / "best_full.ckpt",
+                        resume_state(self.model, self.optimizer, self.step,
+                                     epoch))
+
+    def fit(self, train_ds, valid_ds, num_epochs: Optional[int] = None,
+            resume_path: Optional[str] = None) -> Dict[str, Any]:
+        cfg = self.configs
+        num_epochs = num_epochs or int(cfg.get("num_epochs", 100))
+        batch_size = int(cfg.get("batch_size", 2))
+        patience = int(cfg.get("early_stopping_patience", 20))
+        logdir = Path(self.logdir) if self.logdir else Path("models/_scratch")
+        (logdir / "checkpoints").mkdir(parents=True, exist_ok=True)
+
+        root = set_global_seed(self.seed)
+        start_epoch = 0
+        if resume_path:
+            restored = restore_into(self.model, self.optimizer, resume_path)
+            self.step = restored["step"]
+            start_epoch = restored["epoch"] + 1
+            logger.info("resumed from %s at epoch %d", resume_path,
+                        start_epoch)
+
+        n_train_batches = max(1, len(train_ds) // batch_size)
+        lr = float(cfg.get("learning_rate", 1e-3))
+        scheduler = get_scheduler(cfg.get("scheduler", "reduce"), lr,
+                                  num_epochs, n_train_batches,
+                                  mode=self.metric_mode)
+        best_metric = -np.inf if self.metric_mode == "max" else np.inf
+        bad_epochs = 0
+        history = []
+        global_step = 0
+        metrics_file = logdir / "metrics.jsonl"
+        from ..utils.tb import TensorBoardWriter, row_to_scalars
+        tb = TensorBoardWriter(logdir,
+                               enabled=bool(cfg.get("tensorboard", True)))
+        visualize = bool(cfg.get("visualize_batches", True))
+
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.time()
+            # ---- train ----
+            epoch_gen = fold_in(root, 1000 + epoch)
+            train_metrics = []
+            for batch in prefetch(batch_iterator(
+                    train_ds, batch_size, shuffle=True, drop_last=True,
+                    seed=self.seed + epoch, workers=self.num_workers)):
+                if scheduler is not None and scheduler.batch_update:
+                    lr = scheduler.batch_lr(global_step)
+                train_metrics.append(self.train_step(
+                    batch["image"], batch["mask"], epoch_gen, lr))
+                global_step += 1
+            train_agg = ({k: float(torch.stack([m[k] for m in train_metrics])
+                                   .float().mean())
+                          for k in train_metrics[0]} if train_metrics else {})
+
+            # ---- validate ----
+            # val dice / iou are per-batch means (the reference's Catalyst
+            # callbacks); the global-count variants ride along
+            eps = 1e-7
+            inter = pred = true = 0.0
+            tp = np.zeros(len(M.THRESH_LIST))
+            ap, pp = np.zeros_like(tp), np.zeros_like(tp)
+            vlosses, batch_dices, batch_ious = [], [], []
+            best_b = worst_b = None
+
+            def consume(entry):
+                nonlocal inter, pred, true, best_b, worst_b, tp, ap, pp
+                r, nv = entry
+                bi, bp, bt = (float(r["inter"]), float(r["pred"]),
+                              float(r["true"]))
+                inter += bi
+                pred += bp
+                true += bt
+                vlosses.append(float(r["loss"]))
+                tp += r["tp"].cpu().numpy()
+                ap += r["ap"].cpu().numpy()
+                pp += r["pp"].cpu().numpy()
+                bd = (2 * bi + eps) / (bp + bt + eps)
+                batch_dices.append(bd)
+                batch_ious.append((bi + eps) / (bp + bt - bi + eps))
+                if visualize:
+                    if best_b is None or bd > best_b[0]:
+                        best_b = (bd, r["vis_img"], r["gt"], r["probs"], nv)
+                    if worst_b is None or bd < worst_b[0]:
+                        worst_b = (bd, r["vis_img"], r["gt"], r["probs"], nv)
+
+            # the host reads a batch's scalars one batch behind the device
+            pending: deque = deque()
+            for batch in prefetch(batch_iterator(
+                    valid_ds, batch_size, shuffle=False,
+                    workers=self.num_workers)):
+                pending.append((self.eval_step(batch["image"], batch["mask"],
+                                               int(batch["n_valid"])),
+                                int(batch["n_valid"])))
+                if len(pending) > 1:
+                    consume(pending.popleft())
+            while pending:
+                consume(pending.popleft())
+            val_dice = float(np.mean(batch_dices)) if batch_dices else 0.0
+            val_iou = float(np.mean(batch_ious)) if batch_ious else 0.0
+            sn = (tp + eps) / (ap + eps)
+            ppv = (tp + eps) / (pp + eps)
+            val_metrics = {
+                "dice": val_dice, "iou": val_iou,
+                "dice_global": (2 * inter + eps) / (pred + true + eps),
+                "iou_global": (inter + eps) / (pred + true - inter + eps),
+                "aucpr": float(np.trapezoid(ppv[::-1], sn[::-1])),
+                "loss": float(np.mean(vlosses)) if vlosses else 0.0}
+
+            if visualize and best_b is not None:
+                self._save_overlays(logdir / "visuals", epoch,
+                                    (("best", best_b), ("worst", worst_b)))
+
+            # ---- schedule / select / stop ----
+            metric_val = val_metrics.get(self.metric_name, val_dice)
+            if scheduler is not None and not scheduler.batch_update:
+                lr = scheduler.epoch_lr(epoch, metric_val)
+            better = (metric_val > best_metric if self.metric_mode == "max"
+                      else metric_val < best_metric)
+            if better:
+                best_metric = metric_val
+                bad_epochs = 0
+            else:
+                bad_epochs += 1
+            self._checkpoints(logdir, metric_val, epoch, better)
+
+            row = {"epoch": epoch, "lr": lr, "time": time.time() - t0,
+                   **{f"train_{k}": v for k, v in train_agg.items()},
+                   **{f"val_{k}": v for k, v in val_metrics.items()}}
+            history.append(row)
+            with open(metrics_file, "a") as f:
+                f.write(json.dumps(row) + "\n")
+            tb.add_scalars(epoch, row_to_scalars(row))
+            logger.info("epoch %d | loss %.4f | val_dice %.4f | lr %.2e | "
+                        "%.1fs", epoch, train_agg.get("loss", float("nan")),
+                        val_dice, lr, row["time"])
+            if bad_epochs >= patience:
+                logger.info("early stopping at epoch %d (patience %d)",
+                            epoch, patience)
+                break
+
+        tb.close()
+        return {"history": history, "best_metric": float(best_metric),
+                "logdir": logdir}
+
+    @staticmethod
+    def _save_overlays(vis_dir: Path, epoch: int, picks) -> None:
+        """The best and worst val batches as GT-vs-prediction strips (the
+        reference's ShowPolarBatchesCallback, train.py:323-327)."""
+        from PIL import Image
+
+        from ..analysis.visualize import overlay_mask_image
+
+        vis_dir.mkdir(parents=True, exist_ok=True)
+        for tag, (d, im, gt, pr, nv) in picks:
+            im, gt, pr = (t[:nv].float().cpu().numpy() for t in (im, gt, pr))
+            panels = [overlay_mask_image(im[i], gt[i] > 0.5, pr[i] > 0.5)
+                      for i in range(im.shape[0])]
+            if panels:
+                Image.fromarray(np.concatenate(panels, axis=1)).save(
+                    vis_dir / f"epoch{epoch:03d}_{tag}_dice{d:.3f}.png")
+
+
+def train_model(exp_name: str, configs: Dict[str, Any], seed: int = 1999,
+                models_root: str = "models", device=None) -> Path:
+    """The reference entry point (train.py:160): build the datasets from the
+    config's paths, train, and write checkpoints and config.json under
+    ``<models_root>/<dataset>/<lesion>/<exp_name>/``."""
+    cfg = dict(configs)
+    if cfg.get("data_type", "all") == "tile":
+        raise _not_ported("tile-mode training (data_type 'tile')",
+                          "ROADMAP.md queue 1 item E")
+    logdir = make_logdir(models_root, cfg.get("dataset_name", "IDRiD"),
+                         cfg.get("lesion_type", "EX"), exp_name)
+    with open(logdir / "config.json", "w") as f:
+        json.dump(cfg, f, indent=2, default=str)
+    imgs, masks = get_datapath(Path(cfg["train_img_path"]),
+                               Path(cfg["train_mask_path"]),
+                               cfg.get("lesion_type", "EX"))
+    (tr_i, tr_m), (va_i, va_m) = train_val_split(
+        imgs, masks, val_size=float(cfg.get("val_size", 0.2)), seed=seed)
+    kw = dict(gray=cfg.get("gray", False),
+              ben_transform=cfg.get("use_ben_transform", False))
+    train_ds = OneLesionSegmentation(tr_i, tr_m, **kw)
+    valid_ds = OneLesionSegmentation(va_i, va_m, **kw)
+    logger.info("train %d | valid %d images", len(train_ds), len(valid_ds))
+    trainer = Trainer(cfg, logdir=logdir, seed=seed, device=device)
+    result = trainer.fit(train_ds, valid_ds,
+                         resume_path=cfg.get("resume_path"))
+    logger.info("best %s: %.4f", cfg.get("metric", "dice"),
+                result["best_metric"])
+    return logdir

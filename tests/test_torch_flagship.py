@@ -275,10 +275,23 @@ def test_pallas_tail_adds_no_parameters(tail):
 
 
 def test_pallas_tail_block_raises_in_training_mode():
-    block = DecoderBlock(8, 8, 8, attention_type="scse", pallas_tail="pair")
+    """In training a pallas_tail block takes the plain path (the kernels
+    have no backward); forced onto the kernel route under grad mode, the
+    kernel's wrapper raises instead of cutting the graph."""
+    block = DecoderBlock(8, 8, 8, attention_type="scse", pallas_tail="pair",
+                         drop_block_prob=0.0)
+    plain = DecoderBlock(8, 8, 8, attention_type="scse",
+                         drop_block_prob=0.0)
+    plain.load_state_dict(block.state_dict())
     block.train()
-    with pytest.raises(NotImplementedError):
-        block(torch.zeros(1, 8, 4, 4), [torch.zeros(1, 8, 8, 8)])
+    plain.train()
+    x, skip = torch.randn(1, 8, 4, 4), [torch.randn(1, 8, 8, 8)]
+    y = block(x, skip)
+    assert y.grad_fn is not None
+    np.testing.assert_array_equal(y.detach().numpy(),
+                                  plain(x, skip).detach().numpy())
+    with pytest.raises(RuntimeError, match="no backward"):
+        block._pallas_pair_call(x, skip)
 
 
 def test_scse_raw_gates_and_mean_override_match_jax():
@@ -331,10 +344,16 @@ def test_upsample2x_w_matches_jax():
 
 
 def test_training_raises():
+    """What training still refuses: a model left in eval mode under grad
+    mode (its K1 wrapper raises rather than return a tensor without a
+    gradient), and ``remat``, which is not ported. The train forward
+    itself is differentiable."""
     model = torch_flagship()
     x = torch.zeros(1, 3, 32 * BASE_DIM, 32 * BASE_DIM)
-    with pytest.raises(NotImplementedError):
-        model(x, train=True)
-    model.train()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no backward"):
         model(x)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tzoo.get_model("unetplusplusstar", {**MODEL_PARAMS, "remat": True},
+                       training=True, device="cpu")
+    model.train()
+    assert model(x).grad_fn is not None

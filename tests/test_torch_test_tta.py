@@ -203,6 +203,12 @@ def test_paths_and_datasets_match_jax(run, monkeypatch):
     assert list(TD.prefetch(iter(range(5)))) == list(range(5))
 
 
+TRAIN_MODULES = ("ops.losses", "optim.optimizers", "optim.schedulers",
+                 "train.param_groups", "train.trainer", "utils.seeding",
+                 "utils.tb", "analysis.visualize", "data.transforms",
+                 "data.datasets")
+
+
 def test_port_imports_without_jax_or_image_packages():
     """Every module of the port imports where PIL, matplotlib and cv2 are
     missing, and none pulls in jax, flax, msgpack or the JAX package."""
@@ -217,9 +223,14 @@ def test_port_imports_without_jax_or_image_packages():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'msgpack', 'eyediseasesegmentation_tpu'))\n"
+        "print(' '.join(names))\n"
         "print(len(names), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
+    listed, last = out.stdout.strip().splitlines()[-2:]
+    n, bad = last.split(" ", 1)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
+    # the train slice's modules are among those imported
+    pkg = "eyediseasesegmentation_tpu_torch."
+    assert {pkg + m for m in TRAIN_MODULES} <= set(listed.split()), listed
