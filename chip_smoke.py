@@ -15,7 +15,9 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    sm90 variant (TMA + wgmma projection, mma.sync attention), with
    CUDA-event times of the kernel, the plain version (fp32) and the library
    composition in bf16 (cuBLAS projection, einsum products, softmax: the
-   plain version run in bf16), per shape and per forward;
+   plain version run in bf16), per shape and per forward; and at the vessel
+   path's five shapes (the flagship at base_dim 19 for 608², L 38 and 19,
+   16 views), which take the wmma variant in fp32 and bf16;
 3. kernels K3 (scSE-gated conv), K2 (decode pair, ``up_part0`` off and on) at
    the four main-path node shapes and K4 (plain conv) at two of them: fp32 at
    batch 1 (the wmma variants) and bf16 at batch 24 (the sm90 variants: TMA
@@ -51,7 +53,28 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    list; uint8 masks in {0, 1} at full size; and ``batch_image_metrics`` of
    the first batch on the card against the CPU (counts equal, ``ap_sum``
    within 1e-5 relative). Prints the pass, ``predict`` alone and metrics
-   plus export, with the peak device memory.
+   plus export, with the peak device memory;
+7. training (PR 8): one fp32 train step of a small flagship, card against
+   CPU (and in fp64); 1 + 8 full-width train steps (no kernel launch);
+   one ``eval_step`` (K1 on sm90); ``train_model`` for one epoch on 5
+   synthetic 2848×4288 images (``pallas_tail=pair_up`` in its config, so its
+   validation launches K2 too), whose run directory the next phase reads;
+8. the experiment drivers (``pipeline.py``, ``pipeline_vessel.py``) stage
+   by stage at full width, the PR/ROC figure aside (no matplotlib on the
+   card's machine): ``test_tta``'s steps on phase 7's run (d4, 2 test
+   images written as files, masks and prob images written, then
+   ``export_result``'s five CSVs checked); the ``multiscale`` alias at
+   ``multiscale_max_res=1024`` (1 + 4 + 16 forwards); tile mode
+   (``build_patches`` + ``build_dataframe`` on 2 full-size images, 8 / 2
+   patches in the train / val lists, ``train_model`` with ``data_type:
+   "tile"``, ``tiled_pass``: 6 windows of 2048 an image, each a d4 batch at
+   1024²); the vessel driver's stages (the flagship at base_dim 19 on 4
+   DRIVE-shaped images padded to 608², ``advanced_vessel``, one epoch, d4
+   without resize scored by AUC-ROC, ``export_result_vessel``), whose K1
+   launches are all wmma; and ``tiled_predict`` and the multiscale tiled
+   legs of an fp32 base_dim-4 flagship, card against CPU on logits within
+   ``SLICE_TOL`` × max|logit|. Launch counts are held per path (each path
+   between a reset and a read of the counts).
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -104,6 +127,13 @@ K1_SHAPES = {
     "x_1_1": (64, 1024, 32, 4, 8, 1536, 2),
     "x_0_1": (64, 256, 64, 4, 16, 1536, 2),
 }
+# the same callers on the vessel path: the flagship at base_dim 19 for
+# 608² (L 38 and 19), 16 views (d4 TTA at batch 2): K1's wmma variant
+VESSEL_SCALE, VESSEL_VIEWS = 608, 16
+VESSEL_K1_SHAPES = {
+    f"vessel_{name}": (L * VESSEL_SCALE // SCALE, cq, cv, H, dv,
+                       VESSEL_VIEWS * (L * VESSEL_SCALE // SCALE), calls)
+    for name, (L, cq, cv, H, dv, _, calls) in K1_SHAPES.items()}
 # part channels → cout @ resolution of the decode nodes on the kernel route
 # at 24 views of 1024² (x_0_2 only with fast_min_res=256)
 NODE_SHAPES = {
@@ -151,6 +181,25 @@ TRAIN_GRAD_LEAF, TRAIN_GRAD_FLOOR, TRAIN_GRAD_MEDIAN = 1e-1, 1e-3, 5e-2
 # invariance (an attention norm's bias), which are rounding noise
 FP64_LOSS_RTOL, FP64_GRAD_LEAF, FP64_GRAD_FLOOR = 1e-10, 1e-3, 1e-9
 TREE_IMAGES = 5                     # train_model: 4 train, 1 val
+# phase 7's run (and the tile run): the train configuration with the decode
+# tail on K2, so that its validation and the pipeline phase launch it
+TREE_CONFIG = dict(TRAIN_CONFIG, model_params=dict(
+    TRAIN_CONFIG["model_params"], pallas_tail=TTA_MODE,
+    fast_min_res=FAST_MIN_RES))
+# the pipeline phase
+PIPE_IMAGES = 2                     # lesion test images, one batch of 2
+PATCH_WINDOW = 256                  # build_patches' (the reference's)
+TILE_TRAIN, TILE_VAL = 8, 2         # patches in the tile-mode lists
+TILES_PER_IMAGE = 6                 # windows of 2048 over 2848×4288
+MULTISCALE_FORWARDS = 1 + 4 + 16    # scales 1, 2, 4 at max_res 1024
+VESSEL_HW, VESSEL_IMAGES = (584, 565), 4    # DRIVE's size
+VESSEL_CONFIG = dict(
+    TRAIN_CONFIG, dataset_name="DRIVE", lesion_type="Vessel_DRIVE",
+    augmentation="advanced_vessel", scale_size=VESSEL_SCALE,
+    model_params=dict(TRAIN_CONFIG["model_params"],
+                      base_dim=VESSEL_SCALE // 32))
+CPU_TILED_HW = (300, 400)           # card against CPU: 4 windows of 256
+RESULT_CSVS = ("sn", "ppv", "sp", "iou", "dice")
 
 
 class SmokeFailure(Exception):
@@ -183,10 +232,14 @@ def time_ms(fn, reps, warm=3):
     return start.elapsed_time(end) / reps
 
 
+def k1_shape(shape):
+    return K1_SHAPES.get(shape) or VESSEL_K1_SHAPES[shape]
+
+
 def k1_inputs(shape, dtype, device, gen):
     """Random folded-attention operands at one main-path shape."""
     import torch
-    L, cq, cv, H, dv, b, _ = K1_SHAPES[shape]
+    L, cq, cv, H, dv, b, _ = k1_shape(shape)
     dkq = 8
     cross = cv is not None
     nkq = H * (2 * dkq + (0 if cross else dv))
@@ -216,7 +269,7 @@ def k1_work(shape):
     """(operations, bytes) of one bf16 K1 call at a main-path shape: the
     projections and the five attention products; each operand read once and
     the output written once."""
-    L, cq, cv, H, dv, b, _ = K1_SHAPES[shape]
+    L, cq, cv, H, dv, b, _ = k1_shape(shape)
     dkq = 8
     cross = cv is not None
     nkq = H * (2 * dkq + (0 if cross else dv))
@@ -235,75 +288,92 @@ def bound_ms(flops, nbytes):
 
 
 def phase_kernel(device):
-    """K1 against its plain version at the main-path shapes: fp32 on the wmma
-    variant, bf16 on the sm90 variant."""
+    """K1 against its plain version at the main-path shapes (fp32 on the
+    wmma variant, bf16 on the sm90 variant) and at the vessel path's (L 38
+    and 19: the wmma variant in both dtypes). Per-forward sums over the
+    12 calls of each path in bf16."""
     import torch
     from eyediseasesegmentation_tpu_torch.ops import axial_attention as AK
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    worst, ms, plain_ms, lib_ms, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0, 0
+    worst = 0.0
+    paths = {name: dict.fromkeys(("ms", "plain_ms", "lib_ms", "flops",
+                                  "nbytes"), 0.0)
+             for name in ("main", "vessel")}
     shapes = {}
-    for shape, (L, cq, cv, H, dv, b, calls) in K1_SHAPES.items():
-        line = [f"K1 {shape} b={b}:"]
-        for dname, tol in K1_TOL.items():
-            dtype = getattr(torch, dname)
-            args, kw = k1_inputs(shape, dtype, device, gen)
-            # the variant is a function of dtype and shapes: wmma in fp32,
-            # sm90 in bf16 at these shapes
-            var = AK.variant(dtype, L, H, kw["dkq"], dv, cq, cv or cq,
-                             [args[0].data_ptr(), args[1].data_ptr()],
-                             cv is None)
-            check(var == ("sm90" if dtype == torch.bfloat16 else "wmma"),
-                  f"K1 {shape} {dname}: variant {var}")
-            before = getattr(AK, f"launches_{var}")
-            got = AK.axial_attention(*args, dtype=dtype, **kw)
-            torch.cuda.synchronize()
-            check(getattr(AK, f"launches_{var}") == before + 1,
-                  f"K1 {shape} {dname}: the {var} kernel did not run")
-            ref_args = list(args)
-            ref_args[0], ref_args[1] = args[0].float(), args[1].float()
-            ref = AK.axial_attention_reference(*ref_args, dtype=torch.float32,
-                                               **kw)
-            err = (got.float() - ref).abs().max().item()
-            bound = tol * ref.abs().max().item()
-            line.append(f"{dname} {var} max_abs_err={err:.3e} "
-                        f"(<= {bound:.3e})")
-            check(got.shape == ref.shape and got.dtype == dtype,
-                  f"K1 {shape} {dname}: shape/dtype {tuple(got.shape)} "
-                  f"{got.dtype}")
-            check(err <= bound, f"K1 {shape} {dname}: max_abs_err {err} > "
-                                f"{bound}")
-            worst = max(worst, err)
-            if dtype == torch.bfloat16:   # the main path's dtype
-                t_k = time_ms(lambda: AK.axial_attention(*args, dtype=dtype,
-                                                         **kw), 10)
-                t_p = time_ms(lambda: AK.axial_attention_reference(
-                    *ref_args, dtype=torch.float32, **kw), 10)
-                t_l = time_ms(lambda: AK.axial_attention_reference(
-                    *args, dtype=dtype, **kw), 10)
-                f, nb = k1_work(shape)
-                b_ms, b_by = bound_ms(f, nb)
-                line.append(f"bf16 kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-                            f"library {t_l:.4f} ms bound {b_ms:.4f} ms "
-                            f"({b_by})")
-                ms += calls * t_k
-                plain_ms += calls * t_p
-                lib_ms += calls * t_l
-                flops += calls * f
-                nbytes += calls * nb
-                shapes[shape] = {"kernel_ms": t_k, "plain_ms": t_p,
-                                 "library_ms": t_l, "bound_ms": b_ms,
-                                 "bound_by": b_by, "calls": calls}
-            del args, got, ref, ref_args
-        print(" | ".join(line), flush=True)
-    b_ms, b_by = bound_ms(flops, nbytes)
-    print(f"K1 per forward (12 calls, bf16, sm90): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
+    for path, table in (("main", K1_SHAPES), ("vessel", VESSEL_K1_SHAPES)):
+        acc = paths[path]
+        for shape, (L, cq, cv, H, dv, b, calls) in table.items():
+            line = [f"K1 {shape} L={L} b={b}:"]
+            for dname, tol in K1_TOL.items():
+                dtype = getattr(torch, dname)
+                args, kw = k1_inputs(shape, dtype, device, gen)
+                # the variant is a function of dtype and shapes: wmma in
+                # fp32 and at L 19 / 38, sm90 in bf16 at the main path's
+                var = AK.variant(dtype, L, H, kw["dkq"], dv, cq, cv or cq,
+                                 [args[0].data_ptr(), args[1].data_ptr()],
+                                 cv is None)
+                want_var = ("sm90" if dtype == torch.bfloat16
+                            and path == "main" else "wmma")
+                check(var == want_var, f"K1 {shape} {dname}: variant {var}")
+                before = getattr(AK, f"launches_{var}")
+                got = AK.axial_attention(*args, dtype=dtype, **kw)
+                torch.cuda.synchronize()
+                check(getattr(AK, f"launches_{var}") == before + 1,
+                      f"K1 {shape} {dname}: the {var} kernel did not run")
+                ref_args = list(args)
+                ref_args[0], ref_args[1] = args[0].float(), args[1].float()
+                ref = AK.axial_attention_reference(
+                    *ref_args, dtype=torch.float32, **kw)
+                err = (got.float() - ref).abs().max().item()
+                bound = tol * ref.abs().max().item()
+                line.append(f"{dname} {var} max_abs_err={err:.3e} "
+                            f"(<= {bound:.3e})")
+                check(got.shape == ref.shape and got.dtype == dtype,
+                      f"K1 {shape} {dname}: shape/dtype {tuple(got.shape)} "
+                      f"{got.dtype}")
+                check(err <= bound, f"K1 {shape} {dname}: max_abs_err {err}"
+                                    f" > {bound}")
+                worst = max(worst, err)
+                if dtype == torch.bfloat16:   # the paths' dtype
+                    t_k = time_ms(lambda: AK.axial_attention(
+                        *args, dtype=dtype, **kw), 10)
+                    t_p = time_ms(lambda: AK.axial_attention_reference(
+                        *ref_args, dtype=torch.float32, **kw), 10)
+                    t_l = time_ms(lambda: AK.axial_attention_reference(
+                        *args, dtype=dtype, **kw), 10)
+                    f, nb = k1_work(shape)
+                    b_ms, b_by = bound_ms(f, nb)
+                    line.append(f"bf16 kernel {t_k:.4f} ms plain {t_p:.4f} "
+                                f"ms library {t_l:.4f} ms bound {b_ms:.4f} "
+                                f"ms ({b_by})")
+                    for k, v in zip(("ms", "plain_ms", "lib_ms", "flops",
+                                     "nbytes"), (t_k, t_p, t_l, f, nb)):
+                        acc[k] += calls * v
+                    shapes[shape] = {"kernel_ms": t_k, "plain_ms": t_p,
+                                     "library_ms": t_l, "bound_ms": b_ms,
+                                     "bound_by": b_by, "calls": calls,
+                                     "variant": var}
+                del args, got, ref, ref_args
+            print(" | ".join(line), flush=True)
+        acc["bound_ms"], acc["bound_by"] = bound_ms(acc.pop("flops"),
+                                                    acc.pop("nbytes"))
+        print(f"K1 per forward of the {path} path (12 calls, bf16, "
+              f"{'sm90' if path == 'main' else 'wmma'}): kernel "
+              f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, library "
+              f"{acc['lib_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms "
+              f"({acc['bound_by']})", flush=True)
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "variant": "sm90", "shapes": shapes}
+    main, vessel = paths["main"], paths["vessel"]
+    return {"max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["lib_ms"],
+            "variant": "sm90", "shapes": shapes,
+            "vessel": {"variant": "wmma", "ms": vessel["ms"],
+                       "plain_ms": vessel["plain_ms"],
+                       "library_ms": vessel["lib_ms"],
+                       "bound_ms": vessel["bound_ms"],
+                       "bound_by": vessel["bound_by"]}}
 
 
 def conv_inputs(chs, cout, res, batch, dtype, device, gen):
@@ -1170,31 +1240,34 @@ def phase_train(device, card):
     return k1
 
 
-def write_tree(root):
-    """A train tree in the IDRiD layout: ``TREE_IMAGES`` synthetic fundus
-    images (jpg) and their EX masks (tif), written with PIL."""
+def write_tree(root, split="train", n=TREE_IMAGES, seed=SEED + 8,
+               mask_sub="mask"):
+    """A split in the IDRiD layout: ``n`` synthetic fundus images (jpg) and
+    their EX masks (tif), written with PIL. Returns (image dir, mask
+    root)."""
     import numpy as np
     from PIL import Image
     from eyediseasesegmentation_tpu_torch.data.paths import lesion_dict
 
-    img_dir = root / "train" / "image"
-    msk_dir = root / "train" / "mask" / lesion_dict["EX"].dir_name
+    img_dir = root / split / "image"
+    msk_dir = root / split / mask_sub / lesion_dict["EX"].dir_name
     img_dir.mkdir(parents=True)
     msk_dir.mkdir(parents=True)
-    rng = np.random.default_rng(SEED + 8)
-    for i in range(TREE_IMAGES):
+    rng = np.random.default_rng(seed)
+    for i in range(n):
         img, mask = synthetic_fundus(rng, FULL_HW)
         Image.fromarray(img).save(img_dir / f"IDRiD_{i:02d}.jpg", quality=95)
         Image.fromarray((mask * 255).astype(np.uint8)).save(
             msk_dir / f"IDRiD_{i:02d}_EX.tif")
-    return img_dir, root / "train" / "mask"
+    return img_dir, root / split / mask_sub
 
 
-def phase_train_model(device):
-    """``train_model`` for one epoch at full width, then ``best.ckpt`` loaded
-    for inference and one d4 predict. Returns K1's launches in the run."""
+def phase_train_model(device, root):
+    """``train_model`` for one epoch at full width under ``root`` (the run
+    directory stays for the pipeline phase), then ``best.ckpt`` loaded for
+    inference and one d4 predict. Returns (K1's launches in the run, the run
+    directory)."""
     import math
-    import tempfile
 
     import numpy as np
     import torch
@@ -1204,50 +1277,483 @@ def phase_train_model(device):
     from eyediseasesegmentation_tpu_torch.train.trainer import train_model
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        img_dir, mask_dir = write_tree(root / "data")
-        cfg = dict(TRAIN_CONFIG, num_epochs=1, train_img_path=str(img_dir),
-                   train_mask_path=str(mask_dir))
-        reset_counts()
-        t0 = time.perf_counter()
-        logdir = train_model("smoke", cfg, seed=1999,
-                             models_root=str(root / "models"))
-        t_train = time.perf_counter() - t0
-        counts, by_variant = read_counts(), read_variant_counts()
-        check(counts["axial_attention"] > 0, f"train_model: {counts}")
-        check_variants("train_model", by_variant, "sm90")
-        check(json.loads((logdir / "config.json").read_text()) == cfg,
-              "train_model: config.json")
-        rows = [json.loads(x) for x in
-                (logdir / "metrics.jsonl").read_text().splitlines()]
-        check(len(rows) == 1 and all(
-            math.isfinite(v) for v in rows[0].values()),
-            f"train_model: metrics rows {rows}")
-        for name in ("best", "last", "best_full"):
-            check((logdir / "checkpoints" / f"{name}.ckpt").is_file(),
-                  f"train_model: no {name}.ckpt")
-        model, run_cfg = load_model_for_inference(logdir)
-        check(next(model.parameters()).device.type == "cuda",
-              "train_model: the run did not load on the card")
-        predictor = TTAPredictor(model, run_cfg, tta="d4", ori_hw=FULL_HW)
-        img = np.asarray(Image.open(img_dir / "IDRiD_00.jpg").convert(
-            "RGB"))[None]
-        probs = predictor.predict(img)
-        torch.cuda.synchronize()
-        check(tuple(probs.shape) == (1, *FULL_HW)
-              and bool(torch.isfinite(probs).all())
-              and 0.0 <= probs.min().item() <= probs.max().item() <= 1.0,
-              f"train_model: predict {tuple(probs.shape)}")
+    img_dir, mask_dir = write_tree(root / "data")
+    cfg = dict(TREE_CONFIG, num_epochs=1, train_img_path=str(img_dir),
+               train_mask_path=str(mask_dir))
+    reset_counts()
+    t0 = time.perf_counter()
+    logdir = train_model("smoke", cfg, seed=1999,
+                         models_root=str(root / "models"))
+    t_train = time.perf_counter() - t0
+    counts, by_variant = read_counts(), read_variant_counts()
+    check(counts["axial_attention"] > 0, f"train_model: {counts}")
+    check_variants("train_model", by_variant, "sm90")
+    check(json.loads((logdir / "config.json").read_text()) == cfg,
+          "train_model: config.json")
+    rows = [json.loads(x) for x in
+            (logdir / "metrics.jsonl").read_text().splitlines()]
+    check(len(rows) == 1 and all(
+        math.isfinite(v) for v in rows[0].values()),
+        f"train_model: metrics rows {rows}")
+    for name in ("best", "last", "best_full"):
+        check((logdir / "checkpoints" / f"{name}.ckpt").is_file(),
+              f"train_model: no {name}.ckpt")
+    model, run_cfg = load_model_for_inference(logdir)
+    check(next(model.parameters()).device.type == "cuda",
+          "train_model: the run did not load on the card")
+    predictor = TTAPredictor(model, run_cfg, tta="d4", ori_hw=FULL_HW)
+    img = np.asarray(Image.open(img_dir / "IDRiD_00.jpg").convert(
+        "RGB"))[None]
+    probs = predictor.predict(img)
+    torch.cuda.synchronize()
+    check(tuple(probs.shape) == (1, *FULL_HW)
+          and bool(torch.isfinite(probs).all())
+          and 0.0 <= probs.min().item() <= probs.max().item() <= 1.0,
+          f"train_model: predict {tuple(probs.shape)}")
     print(f"train_model 1 epoch at {SCALE}² bf16 on {TREE_IMAGES} images of "
           f"{FULL_HW[0]}x{FULL_HW[1]} (4 train, 1 val): {t_train:.2f} s, row "
           f"{rows[0]}; K1 launches {counts['axial_attention']} (by variant "
-          f"{by_variant['axial_attention']}); best.ckpt loaded for one d4 "
-          f"predict; phase {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
+          f"{by_variant['axial_attention']}), K2 {counts['decode_pair']} "
+          f"(pallas_tail={TTA_MODE}); best.ckpt loaded for one d4 predict; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     del model, predictor, probs
     torch.cuda.empty_cache()
-    return counts["axial_attention"]
+    return counts["axial_attention"], logdir
+
+
+def check_csvs(tag, csv_dir, n_images):
+    """The five result CSVs: a row per image and the ``Avg:`` row, every
+    value finite and in [0, 1]."""
+    import math
+    for key in RESULT_CSVS:
+        lines = (csv_dir / f"{key}.csv").read_text().splitlines()
+        check(len(lines) == n_images + 1 and lines[-1].startswith("Avg:,"),
+              f"{tag}: {key}.csv has {len(lines)} rows")
+        vals = [float(ln.rsplit(",", 1)[1]) for ln in lines]
+        check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in vals),
+              f"{tag}: {key}.csv values {vals}")
+
+
+def check_probs(tag, probs, shape):
+    import torch
+    check(probs.device.type == "cuda" and tuple(probs.shape) == shape
+          and bool(torch.isfinite(probs).all())
+          and 0.0 <= probs.min().item() <= probs.max().item() <= 1.0,
+          f"{tag}: probabilities {probs.device} {tuple(probs.shape)}")
+
+
+def pipeline_whole_image(logdir, test):
+    """``pipeline.py``'s inference and analysis on phase 7's run: the steps
+    of ``test_tta`` (d4, ``createprob`` on, as the driver forces it) but the
+    figure, then ``export_result``. Returns the launch counts of the
+    pass."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.analysis.aucpr import (
+        pr_curve_report)
+    from eyediseasesegmentation_tpu_torch.analysis.stat_result import (
+        export_result)
+    from eyediseasesegmentation_tpu_torch.data import (
+        TestSegmentation, batch_iterator, get_datapath, prefetch)
+    from eyediseasesegmentation_tpu_torch.infer.tta import (
+        TTAPredictor, export_masks_on_device, load_model_for_inference,
+        tta_pass)
+
+    model, run_cfg = load_model_for_inference(logdir)
+    cfg = {**run_cfg, **test}
+    check(cfg["model_params"].get("pallas_tail") == TTA_MODE
+          and model.dtype == torch.bfloat16,
+          f"pipeline: run config {cfg['model_params']} / {model.dtype}")
+    ds = TestSegmentation(*get_datapath(Path(cfg["test_img_path"]),
+                                        Path(cfg["test_mask_path"]), "EX"),
+                          metric_roundtrip_scale=SCALE)
+    predictor = TTAPredictor(model, cfg, tta="d4", ori_hw=FULL_HW)
+    torch.cuda.synchronize()
+    reset_counts()                               # the path starts here
+    totals, prob_batches, t_pass = tta_pass(
+        predictor, prefetch(batch_iterator(ds, TTA_BATCH, workers=2)))
+    counts, by_variant = read_counts(), read_variant_counts()  # ... ends
+    forwards = len(prob_batches)
+    check(counts == expected_counts(TTA_MODE, forwards),
+          f"pipeline test_tta: launches {counts} in {forwards} forwards")
+    check_variants("pipeline test_tta", by_variant, "sm90")
+    for probs, _ in prob_batches:
+        check_probs("pipeline test_tta", probs, (TTA_BATCH, *FULL_HW))
+    thresholds = pr_curve_report(totals["tp"], totals["ap"], totals["pp"],
+                                 logdir.name, figure_dir=None)
+    out = Path(cfg["out_dir"]) / "IDRiD" / "tta" / "EX"
+    t0 = time.perf_counter()
+    export_masks_on_device(
+        ((p, [Path(n).stem + ".jpg" for n in f]) for p, f in prob_batches),
+        thresholds["optimal_threshold_2"], out / logdir.name,
+        out / "prob_image" / logdir.name)
+    csv_dir = export_result(f"EX/{logdir.name}", cfg)
+    t_files = time.perf_counter() - t0
+    check_csvs("pipeline test_tta", csv_dir, len(ds))
+    mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
+    print(f"pipeline lesion whole image: {len(ds)} images of "
+          f"{FULL_HW[0]}x{FULL_HW[1]}, d4 bf16 pallas_tail={TTA_MODE}, "
+          f"pass {t_pass:.4f} s ({len(ds) / t_pass:.4f} images/sec), masks "
+          f"+ prob images + result CSVs {t_files:.2f} s; mean_auc "
+          f"{mean_auc:.6f}, thresholds {thresholds}; launches {counts} by "
+          f"variant {by_variant['axial_attention']} / "
+          f"{by_variant['decode_pair']} (K1 / K2)", flush=True)
+    return counts, model, cfg
+
+
+def pipeline_tiles(root, train_tree, test):
+    """Tile mode: patches of 2 full-size train images, a train list of
+    ``TILE_TRAIN`` and a val list of ``TILE_VAL`` of them, ``train_model``
+    on them for one epoch, then ``tta_patches``' steps (``tiled_pass``, the
+    PR sweep, the renamed masks) but the figure. Returns the launch counts
+    of the pass."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from eyediseasesegmentation_tpu_torch.analysis.aucpr import (
+        pr_curve_report)
+    from eyediseasesegmentation_tpu_torch.analysis.stat_result import (
+        export_result)
+    from eyediseasesegmentation_tpu_torch.data import (TestSegmentation,
+                                                       get_datapath)
+    from eyediseasesegmentation_tpu_torch.data.patches import (
+        build_dataframe, build_patches, read_img_mask_csv)
+    from eyediseasesegmentation_tpu_torch.infer.tta import (
+        TTAPredictor, export_masks_on_device, load_model_for_inference,
+        tiled_pass)
+    from eyediseasesegmentation_tpu_torch.train.trainer import train_model
+    from eyediseasesegmentation_tpu_torch.utils import make_grid
+
+    t0 = time.perf_counter()
+    imgs, masks = get_datapath(*train_tree, "EX")
+    built = build_patches(imgs[:2], masks[:2], root / "patches" / "image",
+                          root / "patches" / "mask", window=PATCH_WINDOW)
+    all_i, all_m = read_img_mask_csv(build_dataframe(
+        root / "patches" / "image", root / "patches" / "mask"))
+    check(len(all_i) == built["pos"] + built["neg"] - built["removed"]
+          >= TILE_TRAIN + TILE_VAL and built["pos"] > 0,
+          f"build_patches: {built}, {len(all_i)} listed")
+    pick = np.linspace(0, len(all_i) - 1, TILE_TRAIN + TILE_VAL).astype(int)
+    lists = {}
+    for split, idx in (("train", pick[:TILE_TRAIN]),
+                       ("val", pick[TILE_TRAIN:])):
+        d = root / "tiles" / split / "EX"
+        for sub, src in (("image", all_i), ("mask", all_m)):
+            (d / sub).mkdir(parents=True)
+            for i in idx:
+                shutil.copy(src[i], d / sub / Path(src[i]).name)
+        lists[split] = build_dataframe(d / "image", d / "mask")
+    t_patches = time.perf_counter() - t0
+    cfg = dict(TREE_CONFIG, num_epochs=1, data_type="tile",
+               tile_train_csv=str(lists["train"]),
+               tile_val_csv=str(lists["val"]))
+    t0 = time.perf_counter()
+    logdir = train_model("smoke_tile", cfg, seed=1999,
+                         models_root=str(root / "models"))
+    t_train = time.perf_counter() - t0
+    rows = (logdir / "metrics.jsonl").read_text().splitlines()
+    check(len(rows) == 1, f"tile train_model: {rows}")
+
+    model, run_cfg = load_model_for_inference(logdir)
+    cfg = {**run_cfg, **test}
+    ds = TestSegmentation(*get_datapath(Path(cfg["test_img_path"]),
+                                        Path(cfg["test_mask_path"]), "EX"))
+    engine = TTAPredictor(model, cfg, tta="d4", resize=False)
+    window = min(2 * SCALE, *FULL_HW)
+    grid = make_grid(FULL_HW, window=window, min_overlap=32)
+    check(len(grid) == TILES_PER_IMAGE, f"tiled: {len(grid)} windows")
+    t0 = time.perf_counter()
+    tiled_pass(engine, ds, grid, window, SCALE, "pr")   # cuDNN tunes 8 views
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                               # the path starts here
+    t0 = time.perf_counter()
+    totals, probs = tiled_pass(engine, ds, grid, window, SCALE, "pr")
+    torch.cuda.synchronize()
+    t_pass = time.perf_counter() - t0
+    counts, by_variant = read_counts(), read_variant_counts()  # ... ends
+    peak = torch.cuda.max_memory_allocated()
+    forwards = TILES_PER_IMAGE * len(ds)
+    check(counts == expected_counts(TTA_MODE, forwards),
+          f"tiled_pass: launches {counts} in {forwards} tile forwards")
+    check_variants("tiled_pass", by_variant, "sm90")
+    for p, _ in probs:
+        check_probs("tiled_pass", p, FULL_HW)
+    thresholds = pr_curve_report(totals["tp"], totals["ap"], totals["pp"],
+                                 logdir.name, figure_dir=None)
+    out = Path(cfg["out_dir"]) / "IDRiD" / "tta" / "EX" / logdir.name
+    export_masks_on_device(
+        ((p, [Path(n).stem.replace("_EX", "") + ".jpg"]) for p, n in probs),
+        thresholds["optimal_threshold_2"], out)
+    check_csvs("tiled", export_result(f"EX/{logdir.name}", cfg), len(ds))
+
+    tile = torch.randint(0, 256, (SCALE, SCALE, 3), device=model_device(
+        model)).float()
+    t_tile = time_ms(lambda: engine.predict_tile(tile), 3, warm=1)
+    mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
+    print(f"pipeline lesion tiles: build_patches on 2 images {built} "
+          f"+ lists of {TILE_TRAIN} / {TILE_VAL} patches {t_patches:.2f} s; "
+          f"train_model 1 epoch on them {t_train:.2f} s; tiled_pass of "
+          f"{len(ds)} images of {FULL_HW[0]}x{FULL_HW[1]}, {len(grid)} "
+          f"windows of {window} at {SCALE}² each, d4 bf16 "
+          f"pallas_tail={TTA_MODE}: {t_pass:.4f} s ({len(ds) / t_pass:.4f}"
+          f" images/sec; the first pass {t_first:.4f} s), predict_tile "
+          f"{t_tile:.2f} ms, peak memory "
+          f"{peak / 2**30:.3f} GiB; mean_auc {mean_auc:.6f}; launches "
+          f"{counts} by variant {by_variant['axial_attention']} / "
+          f"{by_variant['decode_pair']} (K1 / K2)", flush=True)
+    del model, engine, probs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def model_device(model):
+    return next(model.parameters()).device
+
+
+def pipeline_multiscale(model, cfg, images):
+    """``TTAPredictor(tta="multiscale", multiscale_max_res=1024)`` on a
+    batch of full-size images: scale 1 whole, scales 2 and 4 as 4 and 16
+    tiles of 1024². Returns the launch counts."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
+
+    predictor = TTAPredictor(model, cfg, tta="multiscale", ori_hw=FULL_HW,
+                             multiscale_max_res=SCALE)
+    t0 = time.perf_counter()
+    predictor.predict(images)                    # cuDNN tunes batch 2
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                               # the path starts here
+    t0 = time.perf_counter()
+    probs = predictor.predict(images)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, by_variant = read_counts(), read_variant_counts()  # ... ends
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == expected_counts(TTA_MODE, MULTISCALE_FORWARDS),
+          f"multiscale: launches {counts}")
+    check_variants("multiscale", by_variant, "sm90")
+    check_probs("multiscale", probs, (len(images), *FULL_HW))
+    print(f"pipeline multiscale (1, 2, 4; max_res {SCALE}): {len(images)} "
+          f"images of {FULL_HW[0]}x{FULL_HW[1]} bf16 pallas_tail={TTA_MODE}"
+          f", {MULTISCALE_FORWARDS} forwards of {SCALE}²: {dt:.4f} s "
+          f"({len(images) / dt:.4f} images/sec; the first call "
+          f"{t_first:.4f} s), peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {counts}", flush=True)
+    return counts
+
+
+def synthetic_vessels(rng):
+    """A DRIVE-shaped (584×565) uint8 image with dark curved vessels on a
+    fundus-like field and their {0, 1} mask, padded to 608² as the vessel
+    path's images are."""
+    import numpy as np
+    h, w = VESSEL_HW
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    img = np.empty((h, w, 3), np.float32)
+    img[...] = (150.0, 80.0, 40.0)
+    img += rng.standard_normal((h, w, 3), dtype=np.float32) * 6.0
+    mask = np.zeros((h, w), bool)
+    for _ in range(8):
+        a, f, ph, c = (rng.uniform(20, 120), rng.uniform(0.005, 0.03),
+                       rng.uniform(0, 6.3), rng.uniform(0, h))
+        dist = np.abs(yy - (c + a * np.sin(f * xx + ph)))
+        mask |= dist < rng.uniform(1.5, 4.0)
+    img[mask] *= 0.5
+    top, left = (VESSEL_SCALE - h) // 2, (VESSEL_SCALE - w) // 2
+    pad_img = np.zeros((VESSEL_SCALE, VESSEL_SCALE, 3), np.uint8)
+    pad_img[top:top + h, left:left + w] = np.clip(img, 0, 255)
+    pad_mask = np.zeros((VESSEL_SCALE, VESSEL_SCALE), np.uint8)
+    pad_mask[top:top + h, left:left + w] = mask
+    return pad_img, pad_mask
+
+
+def pipeline_vessel(root):
+    """``pipeline_vessel.py``'s stages: ``train_model`` of the flagship at
+    base_dim 19 with ``advanced_vessel`` for one epoch on
+    ``VESSEL_IMAGES`` synthetic images, then ``test_tta``'s vessel steps
+    (d4, no resize, AUC-ROC) on the same images but the figure, the masks
+    and ``export_result_vessel``. Returns (K1's launches in training, the
+    counts of the pass)."""
+    import torch
+    from PIL import Image
+    from eyediseasesegmentation_tpu_torch.analysis.aucpr import (
+        roc_curve_report)
+    from eyediseasesegmentation_tpu_torch.analysis.stat_result_vessel import (
+        export_result_vessel)
+    from eyediseasesegmentation_tpu_torch.data import (
+        TestSegmentation, batch_iterator, get_datapath, prefetch)
+    from eyediseasesegmentation_tpu_torch.infer.tta import (
+        TTAPredictor, export_masks_on_device, load_model_for_inference,
+        tta_pass)
+    from eyediseasesegmentation_tpu_torch.train.trainer import train_model
+
+    import numpy as np
+    rng = np.random.default_rng(SEED + 9)
+    img_dir, msk_dir = root / "vdata" / "image", root / "vdata" / "mask"
+    img_dir.mkdir(parents=True)
+    msk_dir.mkdir(parents=True)
+    for i in range(VESSEL_IMAGES):
+        img, mask = synthetic_vessels(rng)
+        Image.fromarray(img).save(img_dir / f"{i}.jpg", quality=95)
+        Image.fromarray(mask * 255).save(msk_dir / f"{i}.jpg", quality=95)
+    cfg = dict(VESSEL_CONFIG, num_epochs=1, train_img_path=str(img_dir),
+               train_mask_path=str(msk_dir))
+    reset_counts()                               # training starts here
+    t0 = time.perf_counter()
+    logdir = train_model("smoke_vessel", cfg, seed=1999,
+                         models_root=str(root / "models"))
+    t_train = time.perf_counter() - t0
+    train_counts, train_variants = read_counts(), read_variant_counts()
+    check(train_counts["axial_attention"] > 0,
+          f"vessel train_model: {train_counts}")
+    check_variants("vessel train_model", train_variants, "wmma")
+
+    model, run_cfg = load_model_for_inference(logdir)
+    cfg = {**run_cfg, "test_img_path": str(img_dir),
+           "test_mask_path": str(msk_dir), "out_dir": str(root / "outputs")}
+    ds = TestSegmentation(*get_datapath(img_dir, msk_dir, "Vessel_DRIVE"))
+    predictor = TTAPredictor(model, cfg, tta="d4", resize=False)
+
+    def run_pass():
+        return tta_pass(predictor,
+                        prefetch(batch_iterator(ds, TTA_BATCH, workers=2)),
+                        score="roc")
+
+    t_first = run_pass()[2]         # carries cuDNN's tuning at 608²
+    torch.cuda.synchronize()
+    reset_counts()                               # the pass starts here
+    totals, prob_batches, t_pass = run_pass()
+    counts, by_variant = read_counts(), read_variant_counts()  # ... ends
+    forwards = len(prob_batches)
+    check(counts == expected_counts("off", forwards),
+          f"vessel test_tta: launches {counts} in {forwards} forwards")
+    check_variants("vessel test_tta", by_variant, "wmma")
+    for probs, _ in prob_batches:
+        check_probs("vessel test_tta", probs,
+                    (TTA_BATCH, VESSEL_SCALE, VESSEL_SCALE))
+    thresholds = roc_curve_report(totals["tp"], totals["ap"], totals["tn"],
+                                  totals["px"], logdir.name, figure_dir=None,
+                                  pp=totals["pp"])
+    export_masks_on_device(
+        ((p, [Path(n).stem + ".jpg" for n in f]) for p, f in prob_batches),
+        thresholds["optimal_threshold_2"],
+        Path(cfg["out_dir"]) / "DRIVE" / "tta" / "Vessel_DRIVE" / logdir.name)
+    check_csvs("vessel", export_result_vessel(
+        f"Vessel_DRIVE/{logdir.name}", cfg), VESSEL_IMAGES)
+    mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
+    print(f"pipeline vessel: {VESSEL_IMAGES} images of {VESSEL_HW[0]}x"
+          f"{VESSEL_HW[1]} padded to {VESSEL_SCALE}², base_dim "
+          f"{VESSEL_SCALE // 32}, advanced_vessel: train_model 1 epoch "
+          f"{t_train:.2f} s (K1 launches "
+          f"{train_variants['axial_attention']} in its validation); "
+          f"d4 bf16 pass {t_pass:.4f} s ({VESSEL_IMAGES / t_pass:.4f} "
+          f"images/sec; the first pass {t_first:.4f} s), mean AUC-ROC "
+          f"{mean_auc:.6f}, thresholds "
+          f"{thresholds}; launches {counts} (K1 by variant "
+          f"{by_variant['axial_attention']})", flush=True)
+    del model, predictor, prob_batches
+    torch.cuda.empty_cache()
+    return train_counts["axial_attention"], counts
+
+
+def pipeline_card_vs_cpu(device):
+    """``tiled_predict`` and the multiscale tiled leg on the fp32 flagship
+    at base_dim 4 (128²), the card against the CPU, on logits: within
+    ``SLICE_TOL`` × max|logit| of the CPU's. Returns the card's K1
+    launches."""
+    import numpy as np
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
+    from eyediseasesegmentation_tpu_torch.ops.tiling import tiled_predict
+    from eyediseasesegmentation_tpu_torch.utils import make_grid
+
+    params = dict(MODEL_PARAMS, base_dim=PARITY_SIZE // 32)
+    cpu_model = zoo.get_model("unetplusplusstar", params, training=False,
+                              dtype=torch.float32, device="cpu")
+    zoo.init_random(cpu_model, torch.Generator().manual_seed(SEED))
+    card_model = zoo.get_model("unetplusplusstar", params, training=False,
+                               dtype=torch.float32, device="cpu")
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_model.to(device)
+    rng = np.random.default_rng(SEED + 10)
+    image = torch.from_numpy(rng.integers(0, 256, (*CPU_TILED_HW, 3),
+                                          dtype=np.uint8))
+    window = min(2 * PARITY_SIZE, *CPU_TILED_HW)
+    grid = make_grid(CPU_TILED_HW, window=window, min_overlap=32)
+    cfg = {"dataset_name": "IDRiD", "gray": False,
+           "scale_size": PARITY_SIZE}
+    out, k1 = {}, 0
+    for where, model in (("cpu", cpu_model), ("card", card_model)):
+        dev = model_device(model)
+        engine = TTAPredictor(model, cfg, tta="none", resize=False)
+        prep = engine.transform.preprocessing_fn
+        x = prep(image[:PARITY_SIZE, :PARITY_SIZE].float())[None].to(dev)
+        reset_counts()
+        with torch.inference_mode():
+            out[where] = [
+                tiled_predict(lambda t: engine._forward(prep(t)[None])[0],
+                              image.to(dev), grid, window, PARITY_SIZE)]
+            out[where] += [engine._scaled_logits_tiled(x, s) for s in (2, 4)]
+        if where == "card":
+            torch.cuda.synchronize()
+            k1 = read_counts()["axial_attention"]
+    forwards = len(grid) + 4 + 16
+    check(k1 == 12 * forwards and read_variant_counts()[
+        "axial_attention"]["wmma"] == k1,
+        f"card vs CPU: K1 launches {k1} in {forwards} fp32 forwards")
+    line = []
+    for name, want, got in zip(("tiled_predict", "multiscale s=2",
+                                "multiscale s=4"), out["cpu"], out["card"]):
+        err = (got.cpu() - want).abs().max().item()
+        bound = SLICE_TOL * want.abs().max().item()
+        check(got.shape == want.shape and err <= bound,
+              f"card vs CPU {name}: max_abs_err {err} > {bound}")
+        line.append(f"{name} max_abs_err={err:.3e} (<= {bound:.3e})")
+    print(f"pipeline card vs CPU, fp32 base_dim={PARITY_SIZE // 32} on "
+          f"logits: {'; '.join(line)}; K1 {k1} launches on the card "
+          f"(wmma)", flush=True)
+    del card_model
+    torch.cuda.empty_cache()
+    return k1
+
+
+def phase_pipeline(device, card, root, logdir):
+    """The experiment drivers' stages at full width, the figure aside:
+    ``pipeline.py`` on phase 7's run (whole image), in tile mode and with
+    the multiscale alias, ``pipeline_vessel.py``, and the card against the
+    CPU on ``tiled_predict`` and the multiscale tiled leg. Returns the
+    launch counts of each path."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.data import (TestSegmentation,
+                                                       batch_iterator)
+
+    t_phase = time.perf_counter()
+    test_img, test_mask = write_tree(root / "data", "test", PIPE_IMAGES,
+                                     SEED + 11, "label")
+    test = {"test_img_path": str(test_img),
+            "test_mask_path": str(test_mask),
+            "out_dir": str(root / "outputs")}
+    whole, model, cfg = pipeline_whole_image(logdir, test)
+    images = next(batch_iterator(TestSegmentation(sorted(
+        test_img.iterdir())), PIPE_IMAGES))["image"]
+    multiscale = pipeline_multiscale(model, cfg, images)
+    del model
+    torch.cuda.empty_cache()
+    tiles = pipeline_tiles(root, (root / "data" / "train" / "image",
+                                  root / "data" / "train" / "mask"), test)
+    vessel_train_k1, vessel = pipeline_vessel(root)
+    card_k1 = pipeline_card_vs_cpu(device)
+    seconds = time.perf_counter() - t_phase
+    print(f"pipeline phase {seconds:.1f} s; {card}", flush=True)
+    return {"test_tta": whole, "tiled": tiles, "multiscale": multiscale,
+            "vessel": vessel, "vessel_train_k1": vessel_train_k1,
+            "card_vs_cpu_k1": card_k1, "seconds": seconds}
 
 
 def phase_profile_train(device):
@@ -1326,6 +1832,7 @@ def phase_profile(device, modes):
 
 def main(argv=None) -> int:
     import argparse
+    import tempfile
 
     import torch
 
@@ -1393,7 +1900,9 @@ def main(argv=None) -> int:
         k4_launches, k4_variants = phase_conv3x3_path(device)
         phase_train_parity(device)
         k1_eval_step = phase_train(device, card)
-        k1_train_model = phase_train_model(device)
+        with tempfile.TemporaryDirectory() as tmp:
+            k1_train_model, logdir = phase_train_model(device, Path(tmp))
+            pipe = phase_pipeline(device, card, Path(tmp), logdir)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1416,7 +1925,17 @@ def main(argv=None) -> int:
               variants=by_variant["off"]["axial_attention"],
               shapes=k1["shapes"],
               train={"eval_step_launches": k1_eval_step,
-                     "train_model_launches": k1_train_model}),
+                     "train_model_launches": k1_train_model},
+              vessel=k1["vessel"],
+              pipeline={
+                  "test_tta_launches": pipe["test_tta"]["axial_attention"],
+                  "tiled_pass_launches": pipe["tiled"]["axial_attention"],
+                  "multiscale_launches":
+                      pipe["multiscale"]["axial_attention"],
+                  "vessel_wmma_launches": pipe["vessel"]["axial_attention"],
+                  "vessel_train_model_wmma_launches":
+                      pipe["vessel_train_k1"],
+                  "card_vs_cpu_wmma_launches": pipe["card_vs_cpu_k1"]}),
         entry("scse_conv", counts["v1"]["scse_conv"], conv["scse_conv"],
               variant=conv["scse_conv"]["variant"],
               variants=by_variant["v1"]["scse_conv"]),
@@ -1425,7 +1944,9 @@ def main(argv=None) -> int:
               variants=by_variant["pair"]["decode_pair"],
               up_part0={"launches": counts["pair_up"]["decode_pair"],
                         "variants": by_variant["pair_up"]["decode_pair"],
-                        **{k: up[k] for k in up}}),
+                        **{k: up[k] for k in up}},
+              pipeline={f"{path}_launches": pipe[path]["decode_pair"]
+                        for path in ("test_tta", "tiled", "multiscale")}),
         entry("conv3x3", k4_launches, conv["conv3x3"],
               variant=conv["conv3x3"]["variant"], variants=k4_variants,
               shapes=conv["conv3x3"]["shapes"]),

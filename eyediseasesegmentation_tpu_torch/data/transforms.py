@@ -14,9 +14,9 @@ device) and a generator on the images' device for noise fields. The draw
 order of a policy is fixed: one gate (and pick) per member, in the order
 the JAX policy lists them, then the member's own draws when it is taken.
 
-``none``, ``normal`` and ``advanced`` are ported; ``easy``, ``easy_v2``,
-``medium`` and ``advanced_vessel`` need the elastic / grid / optical
-distortions, CLAHE and random scale, which are not ported yet (ROADMAP.md).
+``none``, ``normal``, ``advanced`` and ``advanced_vessel`` are ported;
+``easy``, ``easy_v2`` and ``medium`` need the elastic / grid / optical
+distortions and CLAHE, which are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -95,6 +95,10 @@ def _shift_scale_rotate(rng, img, mask):
     return I.apply_shift_scale_rotate(img, mask, *params)
 
 
+def _random_scale(rng, img, mask):
+    return I.apply_random_scale(img, mask, I.draw_random_scale(rng.host))
+
+
 PHOTOMETRIC = (_contrast, _gamma, _brightness)
 
 
@@ -170,6 +174,15 @@ class AdvancedTransform(BaseTransform):
         return img, mask
 
 
+class AdvancedTransformVessel(AdvancedTransform):
+    """RandomScale[0.5, 2] at p .5 (a scale-about-centre warp at the same
+    shape) before the advanced policy (data_transform.py:134-156)."""
+
+    def hard(self, rng, img, mask):
+        img, mask = _maybe(rng, 0.5, _random_scale, img, mask)
+        return super().hard(rng, img, mask)
+
+
 def _not_ported(name: str, needs: str):
     def make(*args, **kwargs):
         raise NotImplementedError(
@@ -186,7 +199,7 @@ TRANSFORM_REGISTRY = {
     "easy_v2": _not_ported("easy_v2", "the distortion ops"),
     "medium": _not_ported("medium", "the distortion ops and CLAHE"),
     "advanced": AdvancedTransform,
-    "advanced_vessel": _not_ported("advanced_vessel", "random scale"),
+    "advanced_vessel": AdvancedTransformVessel,
 }
 
 

@@ -5,12 +5,12 @@ Counterpart of the repository's ``evaluate.py`` (reference
 precision and recall at ``--threshold`` and the average precision, after
 TTA at the run's ``scale_size``, as one table (``log_pretty_table``) with an
 ``Avg:`` row. The model runs on the GPU unless ``--device cpu`` is given.
+``--tiled`` predicts each image by sliding window (``ops.tiling``) with the
+same TTA views per tile, and scores against the masks as they are.
 
     python -m eyediseasesegmentation_tpu_torch.evaluate --logdir RUN \
-        [--tta d4] [--threshold 0.5] [--config overrides.json] [--device cpu]
-
-``--tiled`` (sliding-window evaluation) raises NotImplementedError until
-``ops/tiling.py`` is ported (ROADMAP.md, queue 1, item D: tiled inference).
+        [--tta d4] [--tiled] [--threshold 0.5] [--config overrides.json] \
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from .data import TestSegmentation, get_datapath
 from .data.datasets import batch_iterator
 from .infer.tta import TTAPredictor, load_model_for_inference
 from .ops import metrics as M
-from .utils import log_pretty_table
+from .ops.tiling import tiled_predict
+from .utils import log_pretty_table, make_grid
 
 COLUMNS = ["image", "dice", "iou", "precision", "recall", "AP"]
 
@@ -43,15 +44,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[list]:
     parser.add_argument("--threshold", type=float, default=0.5)
     parser.add_argument("--batch_size", type=int, default=2)
     parser.add_argument("--tiled", action="store_true",
-                        help="sliding-window evaluation (not ported yet)")
+                        help="sliding-window evaluation instead of the "
+                             "whole-image resize path (reference "
+                             "dice.py:33-151)")
     parser.add_argument("--config", default=None)
     parser.add_argument("--device", default=None,
                         help="torch device of the model (default: the GPU)")
     args = parser.parse_args(argv)
-    if args.tiled:
-        raise NotImplementedError(
-            "evaluate --tiled needs ops/tiling.py, which is not ported yet "
-            "(ROADMAP.md, queue 1, item D: tiled inference)")
 
     overrides = {}
     if args.config:
@@ -66,29 +65,50 @@ def main(argv: Optional[Sequence[str]] = None) -> List[list]:
                                          Path(cfg["test_mask_path"]),
                                          cfg.get("lesion_type", "EX"))
     # whole-image mode scores against the reference's GT geometry
-    ds = TestSegmentation(img_paths, mask_paths, gray=cfg.get("gray", False),
-                          metric_roundtrip_scale=int(cfg.get("scale_size",
-                                                             1024)))
+    ds = TestSegmentation(
+        img_paths, mask_paths, gray=cfg.get("gray", False),
+        metric_roundtrip_scale=(None if args.tiled
+                                else int(cfg.get("scale_size", 1024))))
     first = ds[0]
-    predictor = TTAPredictor(model, cfg, tta=args.tta,
-                             ori_hw=(first["ori_h"], first["ori_w"]))
+    hw = (first["ori_h"], first["ori_w"])
+    predictor = TTAPredictor(model, cfg, tta=args.tta, ori_hw=hw,
+                             resize=not args.tiled)
+
+    def predictions():
+        """(file name, device probabilities (H, W), device mask)."""
+        if not args.tiled:
+            for batch in batch_iterator(ds, args.batch_size, shuffle=False):
+                probs = predictor.predict(batch["image"])
+                for i in range(batch["n_valid"]):
+                    g = torch.from_numpy(batch["mask"][i])
+                    yield batch["filename"][i], probs[i], g.to(probs.device)
+            return
+        scale_size = int(cfg.get("scale_size", 1024))
+        window = min(2 * scale_size, *hw)
+        grid = make_grid(hw, window=window, min_overlap=32)
+        for i in range(len(ds)):
+            s = ds[i]
+            if (s["ori_h"], s["ori_w"]) != hw:
+                raise ValueError(
+                    f"{s['filename']} is {(s['ori_h'], s['ori_w'])} but the "
+                    f"tile grid was built for the first image's {hw}")
+            image = torch.from_numpy(s["image"]).to(predictor.device)
+            with torch.inference_mode():
+                probs = tiled_predict(predictor.predict_tile, image, grid,
+                                      window, scale_size)
+            yield (s["filename"], probs,
+                   torch.from_numpy(s["mask"]).to(probs.device))
 
     rows = []
-    for batch in batch_iterator(ds, args.batch_size, shuffle=False):
-        probs = predictor.predict(batch["image"])
+    for name, p, g in predictions():
         with torch.inference_mode():
-            for i in range(batch["n_valid"]):
-                p = probs[i]
-                g = torch.from_numpy(batch["mask"][i]).to(p.device)
-                s = M.per_image_stats((p > args.threshold).float(), g)
-                ap = (float(M.average_precision(p, g))
-                      if float(torch.sum(g)) > 0 else float("nan"))
-                rows.append([batch["filename"][i],
-                             round(float(s["dice"]), 4),
-                             round(float(s["iou"]), 4),
-                             round(float(s["ppv"]), 4),
-                             round(float(s["sn"]), 4),
-                             round(ap, 4) if np.isfinite(ap) else "n/a"])
+            s = M.per_image_stats((p > args.threshold).float(), g)
+            ap = (float(M.average_precision(p, g))
+                  if float(torch.sum(g)) > 0 else float("nan"))
+        rows.append([name, round(float(s["dice"]), 4),
+                     round(float(s["iou"]), 4), round(float(s["ppv"]), 4),
+                     round(float(s["sn"]), 4),
+                     round(ap, 4) if np.isfinite(ap) else "n/a"])
     means = [np.mean([r[i] for r in rows if isinstance(r[i], float)])
              for i in range(1, 5)]
     rows.append(["Avg:"] + [round(float(m), 4) for m in means] + [""])

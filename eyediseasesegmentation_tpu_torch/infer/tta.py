@@ -12,9 +12,16 @@ exports uint8 masks.
 
 ``test_tta`` is made of two pieces a caller can drive without files:
 ``tta_pass`` (predict + metrics over ``batch_iterator``-shaped batches) and
-``masks_to_uint8`` (the device half of the mask export). The ``multiscale``,
-``five_crop`` and ``ten_crop`` aliases and tiled inference (``tta_patches``)
-are not ported yet (ROADMAP.md).
+``masks_to_uint8`` (the device half of the mask export). ``tta_patches`` is
+the sliding-window counterpart (reference tta.py:150-244): ``tiled_pass``
+runs each test image through ``ops.tiling.tiled_predict`` with the same
+fused TTA views per tile, then the same AUC, threshold search and export.
+
+The ``multiscale`` alias averages the logits of scales 1, 2 and 4; a scale
+whose upsampled side exceeds ``multiscale_max_res`` runs as s² tiles of the
+model's size. ``five_crop`` / ``ten_crop`` predict half-size crops. A model
+built for one input size (the axial flagship) raises ``ValueError`` on any
+other, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ from ..data import TestSegmentation, get_datapath, get_transform
 from ..data.datasets import batch_iterator, prefetch
 from ..ops import image as I
 from ..ops import metrics as M
+from ..ops.tiling import tiled_predict
 from ..train.checkpoint import load_checkpoint
-from ..utils import save_output
+from ..utils import make_grid, save_output
 
 logger = logging.getLogger("eyediseasesegmentation_tpu_torch")
 
@@ -70,6 +78,9 @@ TTA_FAMILIES: Dict[str, Tuple[Callable, Callable, int]] = {
     "hflip": (_hflip_views, _hflip_inverse, 2),
     "none": (lambda x: x[None], lambda v: v, 1),
 }
+
+MULTISCALE_SCALES = (1, 2, 4)
+TTA_ALIASES = (*TTA_FAMILIES, "multiscale", "five_crop", "ten_crop")
 
 
 # ---------------------------------------------------------------------------
@@ -116,23 +127,26 @@ def load_model_for_inference(logdir, best: bool = True,
 class TTAPredictor:
     """``predict(raw_images)`` maps (B, H0, W0, 3) raw images in [0, 255] to
     (B, H0, W0) probabilities at the original resolution: resize + pad +
-    normalize → V views as one batched forward → inverse views → mean →
-    sigmoid → crop the pad → resize back. With ``resize=False`` (vessel
-    mode, reference tta_vessel.py:76) the images are only normalized: they
-    come padded to a square and leave at that size. The model's device and
-    ``dtype`` are used."""
+    normalize → the alias's views (d4, flip, hflip, none: one batched
+    forward) → inverse views → mean of the logits → sigmoid → crop the
+    pad → resize back. With ``resize=False`` (vessel mode, reference
+    tta_vessel.py:76) the images are only normalized: they come padded to a
+    square and leave at that size. The model's device and ``dtype`` are
+    used. ``multiscale_max_res``: the largest side of a monolithic
+    multiscale forward; larger scales run tiled (at scale_size 1024, scale 4
+    would be a 4096² forward)."""
 
     model: torch.nn.Module
     config: Dict[str, Any]
     tta: str = "d4"
     ori_hw: Optional[Tuple[int, int]] = None
     resize: bool = True
+    multiscale_max_res: int = 2048
 
     def __post_init__(self):
-        if self.tta not in TTA_FAMILIES:
-            raise NotImplementedError(
-                f"TTA alias '{self.tta}' is not ported yet (ported: "
-                f"{sorted(TTA_FAMILIES)}); see ROADMAP.md")
+        if self.tta not in TTA_ALIASES:
+            raise KeyError(f"Unknown TTA alias '{self.tta}'. Options: "
+                           f"{list(TTA_ALIASES)}")
         cfg = self.config
         self.scale_size = int(cfg.get("scale_size", 1024))
         prep_fn, _, _ = zoo.get_preprocessing_fn(
@@ -142,14 +156,76 @@ class TTAPredictor:
         self.device = next(self.model.parameters()).device
 
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, C) → fp32 logits (N, H, W)."""
-        out = self.model(images.permute(0, 3, 1, 2))
+        """(N, H, W, C) → fp32 logits (N, H, W). The input is cast to the
+        model's dtype, as the JAX model's first conv casts it."""
+        out = self.model(images.to(self.model.dtype).permute(0, 3, 1, 2))
         if isinstance(out, tuple):
             out = out[0]
         return out.to(torch.float32)[:, 0]
 
+    def _scaled_logits_tiled(self, imgs: torch.Tensor, s: int
+                             ) -> torch.Tensor:
+        """The scale-s leg (s > 1) without the (B, sH, sW) activations of a
+        monolithic forward: the upsampled image (3 channels) is cut into s²
+        tiles of the model's size, their logits pasted into a 1-channel
+        canvas, which is resized back down. Slicing the resized image is
+        what the JAX package's ``scale_and_translate`` per tile computes.
+        Tile forwards equal the whole-image forward only up to the
+        receptive field cut at the seams, as in tiled inference."""
+        n, h, w, _ = imgs.shape
+        up = I.resize(imgs, (s * h, s * w))
+        canvas = imgs.new_zeros((n, s * h, s * w), dtype=torch.float32)
+        for i in range(s):
+            for j in range(s):
+                win = (slice(None), slice(i * h, (i + 1) * h),
+                       slice(j * w, (j + 1) * w))
+                canvas[win] = self._forward(up[win])
+        return I.resize(canvas[..., None], (h, w))[..., 0]
+
+    def _multiscale_logits(self, imgs: torch.Tensor) -> torch.Tensor:
+        """Mean of the logits at scales 1, 2, 4 (bilinear up without
+        antialias, forward, back down), at (B, S, S)."""
+        n, h, w, _ = imgs.shape
+        acc = 0.0
+        for s in MULTISCALE_SCALES:
+            if s == 1:
+                p = self._forward(imgs)
+            elif s * max(h, w) > self.multiscale_max_res:
+                p = self._scaled_logits_tiled(imgs, s)
+            else:
+                p = self._forward(I.resize(imgs, (h * s, w * s)))
+                p = I.resize(p[..., None], (h, w))[..., 0]
+            acc = acc + p
+        return acc / len(MULTISCALE_SCALES)
+
+    def _crop_logits(self, imgs: torch.Tensor) -> torch.Tensor:
+        """five_crop: the 4 corners and the centre at S/2, their logits
+        pasted back and divided by each pixel's count; ten_crop adds the
+        same crops of the hflipped image, flipped back."""
+        n, s = imgs.shape[0], imgs.shape[1]
+        cs = s // 2
+        corners = [(0, 0), (0, s - cs), (s - cs, 0), (s - cs, s - cs),
+                   ((s - cs) // 2, (s - cs) // 2)]
+        batches = [imgs] if self.tta == "five_crop" else [imgs,
+                                                          I.hflip(imgs)]
+        acc = imgs.new_zeros((n, s, s), dtype=torch.float32)
+        cnt = imgs.new_zeros((s, s), dtype=torch.float32)
+        for flipped, im in enumerate(batches):
+            for y, x in corners:
+                p = self._forward(im[:, y:y + cs, x:x + cs])
+                if flipped:
+                    p, x = p.flip(-1), s - cs - x
+                acc[:, y:y + cs, x:x + cs] += p
+                cnt[y:y + cs, x:x + cs] += 1.0
+        return acc / cnt.clamp_min(1.0)
+
     def _tta_probs(self, imgs: torch.Tensor) -> torch.Tensor:
-        """(B, S, S, C) normalized → TTA-merged probabilities (B, S, S)."""
+        """(B, S, S, C) normalized → TTA-merged probabilities (B, S, S): one
+        sigmoid after the merge of the logits, in every family."""
+        if self.tta == "multiscale":
+            return torch.sigmoid(self._multiscale_logits(imgs))
+        if self.tta in ("five_crop", "ten_crop"):
+            return torch.sigmoid(self._crop_logits(imgs))
         make_views, inverse, _ = TTA_FAMILIES[self.tta]
         # cast before building the views: they are pure permutations and the
         # first conv casts its input anyway, so the stack is half the bytes
@@ -158,6 +234,13 @@ class TTAPredictor:
         logits = self._forward(views.reshape(v * b, h, w, c))
         logits = inverse(logits.reshape(v, b, h, w)[..., None])[..., 0]
         return torch.sigmoid(logits.mean(0))
+
+    def predict_tile(self, tile: torch.Tensor) -> torch.Tensor:
+        """One (S, S, C) tile in [0, 255] → (S, S) probabilities: normalize,
+        then the alias's views (the ``predict_fn`` of tiled inference)."""
+        prep = self.transform.preprocessing_fn or (lambda x: x)
+        with torch.inference_mode():
+            return self._tta_probs(prep(tile)[None])[0]
 
     def _predict(self, raw_images: torch.Tensor) -> torch.Tensor:
         raw_images = raw_images.to(torch.float32)
@@ -272,6 +355,26 @@ def export_masks_on_device(prob_batches, optim, out_path, prob_path=None):
         _save(pending.popleft())
 
 
+def _curve_report(totals, metric: str, name: str, cfg: Dict[str, Any]):
+    """The PR (lesion) or ROC (vessel) curve family of the pass's summed
+    counters, its figure under outputs/<ds>/figures/<lesion>/, and the
+    mean per-image AUC. Returns (mean_auc, thresholds, out_root)."""
+    from ..analysis.aucpr import pr_curve_report, roc_curve_report
+
+    mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
+    out_root = Path(cfg.get("out_dir", "outputs")) / cfg["dataset_name"]
+    figure_dir = out_root / "figures" / cfg["lesion_type"]
+    if metric == "pr":
+        thresholds = pr_curve_report(totals["tp"], totals["ap"], totals["pp"],
+                                     name, figure_dir=figure_dir)
+    else:
+        thresholds = roc_curve_report(totals["tp"], totals["ap"],
+                                      totals["tn"], totals["px"], name,
+                                      figure_dir=figure_dir, pp=totals["pp"])
+    logger.info("optimal thresholds: %s", thresholds)
+    return mean_auc, thresholds, out_root
+
+
 def test_tta(logdir, config: Dict[str, Any], args: Dict[str, Any],
              batch_size: int = 2, metric: str = "pr", resize: bool = True,
              device=None) -> Dict[str, Any]:
@@ -309,23 +412,12 @@ def test_tta(logdir, config: Dict[str, Any], args: Dict[str, Any],
                                 workers=min(4, batch_size))),
         score="ap" if metric == "pr" else "roc")
     n_images = sum(len(f) for _, f in prob_batches)
-    mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
+    mean_auc, thresholds, out_root = _curve_report(totals, metric,
+                                                   logdir.name, cfg)
     logger.info("MEAN-AUC %.5f | %d images in %.1fs incl. decode+metrics "
                 "(%.2f img/s)", mean_auc, n_images, elapsed,
                 n_images / max(elapsed, 1e-9))
-
-    from ..analysis.aucpr import pr_curve_report, roc_curve_report
-    out_root = Path(cfg.get("out_dir", "outputs")) / cfg["dataset_name"]
-    figure_dir = out_root / "figures" / cfg["lesion_type"]
-    if metric == "pr":
-        thresholds = pr_curve_report(totals["tp"], totals["ap"], totals["pp"],
-                                     logdir.name, figure_dir=figure_dir)
-    else:
-        thresholds = roc_curve_report(totals["tp"], totals["ap"],
-                                      totals["tn"], totals["px"], logdir.name,
-                                      figure_dir=figure_dir, pp=totals["pp"])
     optim = thresholds["optimal_threshold_2"]  # F-max (tta.py:137)
-    logger.info("optimal thresholds: %s", thresholds)
 
     out_path = out_root / "tta" / cfg["lesion_type"] / logdir.name
     out_path.mkdir(parents=True, exist_ok=True)
@@ -343,3 +435,102 @@ def test_tta(logdir, config: Dict[str, Any], args: Dict[str, Any],
 
 
 test_tta.__test__ = False  # keep pytest from collecting the API function
+
+
+# ---------------------------------------------------------------------------
+# Tiled (sliding-window) inference (reference tta_patches, tta.py:150-244)
+# ---------------------------------------------------------------------------
+
+def tiled_pass(tile_engine: TTAPredictor, dataset, grid, window: int,
+               scale_size: int, metric: str = "pr"
+               ) -> Tuple[Dict[str, np.ndarray], List[Tuple[torch.Tensor,
+                                                            str]]]:
+    """Each image of ``dataset`` (``TestSegmentation``-shaped samples:
+    ``image`` uint8 (H, W, 3), ``mask``, ``filename``) through
+    :func:`ops.tiling.tiled_predict` on ``grid``, each tile through
+    ``tile_engine.predict_tile``: the same fused TTA views as whole-image
+    mode (the reference wraps the tiled model in ttach too,
+    tta.py:173-180), with
+    ``batch_image_metrics`` (AP for ``metric='pr'``, ROC-AUC for 'roc') on
+    the image's probabilities on their device. Decode runs one image ahead
+    (``prefetch``), counters come to the host one image behind. Every image
+    must have the size the grid covers. Returns (totals, [(device
+    probabilities (H, W), file name)])."""
+    grid = np.asarray(grid)
+    # the last tile of each axis ends at the image's edge
+    hw = (int(grid[:, 1].max()), int(grid[:, 3].max()))
+    totals: Dict[str, np.ndarray] = {}
+    out: List[Tuple[torch.Tensor, str]] = []
+
+    def _materialize(entry):
+        probs, stats, name = entry
+        for k, v in stats.items():
+            totals[k] = totals.get(k, 0) + v.cpu().numpy()
+        out.append((probs, name))
+
+    pending: deque = deque()
+    for s in prefetch(map(dataset.__getitem__, range(len(dataset)))):
+        if (s["ori_h"], s["ori_w"]) != hw:
+            raise ValueError(
+                f"tiled inference grid was built for {hw} (the first test "
+                f"image) but {s['filename']} is {(s['ori_h'], s['ori_w'])}; "
+                "mixed-size test directories are not supported in one pass.")
+        image = torch.from_numpy(np.ascontiguousarray(s["image"])).to(
+            tile_engine.device)
+        mask = torch.from_numpy(s["mask"].astype(np.uint8)).to(
+            tile_engine.device)
+        with torch.inference_mode():
+            probs = tiled_predict(tile_engine.predict_tile, image, grid,
+                                  window, scale_size)
+            stats = M.batch_image_metrics(
+                probs[None], mask[None],
+                score="ap" if metric == "pr" else "roc")
+        pending.append((probs, stats, s["filename"]))
+        if len(pending) > 1:
+            _materialize(pending.popleft())
+    while pending:
+        _materialize(pending.popleft())
+    return totals, out
+
+
+def tta_patches(logdir, config: Dict[str, Any], args: Dict[str, Any],
+                metric: str = "pr", device=None) -> Dict[str, Any]:
+    """Sliding-window inference over the test directory, then the same AUC,
+    threshold search and export as :func:`test_tta`.
+
+    Windows of ``2·scale_size`` (at most the image's sides) with 32 pixels
+    of overlap (tta.py:197) are resized to ``scale_size`` and back.
+    ``metric='pr'`` is the lesion path (tta.py:216-236), ``metric='roc'``
+    the vessel tiled path (tta_vessel.py:206-218). Masks are written under
+    outputs/<ds>/tta/<lesion>/<exp>/ with IDRiD's ``_<LESION>`` suffix
+    dropped from the names. ``device`` as in :func:`test_tta`."""
+    logdir = Path(logdir)
+    model, run_cfg = load_model_for_inference(
+        logdir, best=_str2bool(args.get("best", "true")), device=device)
+    cfg = {**run_cfg, **config}
+    scale_size = int(cfg.get("scale_size", 1024))
+
+    img_paths, mask_paths = get_datapath(Path(cfg["test_img_path"]),
+                                         Path(cfg["test_mask_path"]),
+                                         cfg.get("lesion_type", "EX"))
+    ds = TestSegmentation(img_paths, mask_paths, gray=cfg.get("gray", False))
+    tile_engine = TTAPredictor(model, cfg, tta=args.get("tta", "d4"),
+                               resize=False)
+    first = ds[0]
+    window = min(2 * scale_size, first["ori_h"], first["ori_w"])
+    grid = make_grid((first["ori_h"], first["ori_w"]), window=window,
+                     min_overlap=32)
+    totals, probs = tiled_pass(tile_engine, ds, grid, window, scale_size,
+                               metric)
+    mean_auc, thresholds, out_root = _curve_report(totals, metric,
+                                                   logdir.name, cfg)
+    logger.info("MEAN-AUC %.5f | %d images, tiled", mean_auc, len(probs))
+    out_path = out_root / "tta" / cfg["lesion_type"] / logdir.name
+    out_path.mkdir(parents=True, exist_ok=True)
+    # IDRiD name remap _<LESION>.tif → .jpg (tta.py:191,234)
+    export_masks_on_device(
+        ((p, [Path(n).stem.replace(f"_{cfg['lesion_type']}", "") + ".jpg"])
+         for p, n in probs),
+        thresholds["optimal_threshold_2"], out_path)
+    return {"mean_auc": mean_auc, "thresholds": thresholds,
+            "out_dir": str(out_path)}

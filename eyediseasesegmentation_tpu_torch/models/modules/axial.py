@@ -30,7 +30,8 @@ from .layers import BatchNorm, PortModule, batch_moments, conv2d, wide
 class RelativePosEnc2D(PortModule):
     """Learned relative position embeddings: (r_q, r_k, r_v) of shapes
     (dkq, dim, dim), (dkq, dim, dim), (dv, dim, dim) gathered from one table
-    with index i − j + dim − 1."""
+    with index i − j + dim − 1. The table fixes the sequence length: any
+    other raises ``ValueError``, as the JAX package's einsum does."""
 
     def __init__(self, dim: int, dim_v: int = 16, dim_kq: int = 8):
         super().__init__()
@@ -41,7 +42,13 @@ class RelativePosEnc2D(PortModule):
         self.register_buffer("index", torch.as_tensor(idx.reshape(-1)),
                              persistent=False)
 
-    def forward(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(self, length: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if length != self.dim:
+            raise ValueError(
+                f"axial attention of length {length}: the relative-position "
+                f"table is built for {self.dim} (the model takes one input "
+                "size)")
         emb = self.relative[:, self.index].reshape(-1, self.dim, self.dim)
         kq = self.dim_kq
         return emb[:kq], emb[kq:2 * kq], emb[2 * kq:]
@@ -111,7 +118,7 @@ class AxialAttention(PortModule):
         self.out_norm = BatchNorm(2 * in_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        r_q, r_k, r_v = self.pos_enc()
+        r_q, r_k, r_v = self.pos_enc(x.shape[1])
         if self.training:
             dt, dkq = self.dtype, self.dkq
             qkv = norm_train(self.to_qkv_bn, x.to(dt) @ self.to_qkv.to(dt))
@@ -151,7 +158,7 @@ class CrossAxialAttention(PortModule):
         self.out_norm = BatchNorm(2 * in_skip_channels)
 
     def forward(self, x_in: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        r_q, r_k, r_v = self.pos_enc()
+        r_q, r_k, r_v = self.pos_enc(x_in.shape[1])
         if self.training:
             dt, dkq = self.dtype, self.dkq
             kq = norm_train(self.to_kq_bn, x_in.to(dt) @ self.to_kq.to(dt))

@@ -2,9 +2,9 @@
 
 Counterpart of ``eyediseasesegmentation_tpu/ops/image.py``: resize / pad /
 crop, normalization, the D4 view family, and the augmentation ops of the
-``normal`` and ``advanced`` policies. Images are (..., H, W, C), so a batch
-(N, H, W, C) goes through in one call where the JAX package vmaps; a map
-without channels gets a trailing axis of 1.
+``normal``, ``advanced`` and ``advanced_vessel`` policies. Images are
+(..., H, W, C), so a batch (N, H, W, C) goes through in one call where the
+JAX package vmaps; a map without channels gets a trailing axis of 1.
 
 Each augmentation op is split in two: a ``draw_*`` that draws its scalars
 (Python floats, from a CPU ``torch.Generator``, so drawing never waits for
@@ -273,6 +273,29 @@ def apply_shift_scale_rotate(img, mask, angle: float, scale: float,
     s = torch.tensor(scale, **f32)
     sy = (cos * oy - sin * ox) / s + cy
     sx = (sin * oy + cos * ox) / s + cx
+    out = warp_bilinear(img, sy, sx)
+    if mask is None:
+        return out
+    return out, warp_bilinear(mask, sy, sx, order=0)
+
+
+def draw_random_scale(gen, scale_limit=(0.5, 2.0)) -> float:
+    """The zoom factor of RandomScale, U(scale_limit)."""
+    return uniform(gen, scale_limit[0], scale_limit[1])
+
+
+def apply_random_scale(img, mask, scale: float):
+    """RandomScale (the vessel policy, data_transform.py:141) as a
+    scale-about-centre warp at the input's shape, by the inverse map
+    output → input; the image bilinear, the mask (if any) nearest."""
+    h, w = img.shape[0], img.shape[1]
+    f32 = dict(dtype=torch.float32, device=img.device)
+    gy = torch.arange(h, **f32)[:, None].expand(h, w)
+    gx = torch.arange(w, **f32)[None, :].expand(h, w)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    s = torch.tensor(scale, **f32)
+    sy = (gy - cy) / s + cy
+    sx = (gx - cx) / s + cx
     out = warp_bilinear(img, sy, sx)
     if mask is None:
         return out

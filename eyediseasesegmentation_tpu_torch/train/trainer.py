@@ -17,9 +17,9 @@ would be needed. Validation runs the model in ``eval()`` under
 ``torch.inference_mode()``, where the kernels run on a card. No autocast
 and no loss scale: bf16 needs none, and the JAX step has none.
 
-Not ported: ``encoder_weights`` (the ImageNet ``.pth`` import), ``remat``,
-data parallelism (``mesh_shape`` with ``data > 1``) and tile-mode data
-(ROADMAP.md); each raises ``NotImplementedError``.
+Not ported: ``encoder_weights`` (the ImageNet ``.pth`` import), ``remat``
+and data parallelism (``mesh_shape`` with ``data > 1``) (ROADMAP.md); each
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from .. import models as zoo
 from ..convert import torch_to_flax
 from ..data import (OneLesionSegmentation, batch_iterator, get_datapath,
                     get_transform, prefetch, train_val_split)
+from ..data.patches import read_img_mask_csv
 from ..data.transforms import AugRng
 from ..models.modules.layers import set_generator, wide
 from ..ops import image as I
@@ -432,21 +433,33 @@ class Trainer:
 def train_model(exp_name: str, configs: Dict[str, Any], seed: int = 1999,
                 models_root: str = "models", device=None) -> Path:
     """The reference entry point (train.py:160): build the datasets from the
-    config's paths, train, and write checkpoints and config.json under
+    config's paths (``data_type: "tile"``: from the patch csvs
+    ``tile_train_csv`` / ``tile_val_csv``, by default under
+    ``processed_root``), train, and write checkpoints and config.json under
     ``<models_root>/<dataset>/<lesion>/<exp_name>/``."""
     cfg = dict(configs)
-    if cfg.get("data_type", "all") == "tile":
-        raise _not_ported("tile-mode training (data_type 'tile')",
-                          "ROADMAP.md queue 1 item E")
     logdir = make_logdir(models_root, cfg.get("dataset_name", "IDRiD"),
                          cfg.get("lesion_type", "EX"), exp_name)
     with open(logdir / "config.json", "w") as f:
         json.dump(cfg, f, indent=2, default=str)
-    imgs, masks = get_datapath(Path(cfg["train_img_path"]),
-                               Path(cfg["train_mask_path"]),
-                               cfg.get("lesion_type", "EX"))
-    (tr_i, tr_m), (va_i, va_m) = train_val_split(
-        imgs, masks, val_size=float(cfg.get("val_size", 0.2)), seed=seed)
+    if cfg.get("data_type", "all") == "tile":
+        # the img_mask.csv patch lists of data.patches.build_dataframe
+        # (reference train.py:77-110 reads
+        # data/processed/<ds>/{train,val}/<lesion>/img_mask.csv)
+        root = Path(cfg.get("processed_root", "data/processed"))
+        base = root / cfg.get("dataset_name", "IDRiD")
+        lesion = cfg.get("lesion_type", "EX")
+        tr_i, tr_m = read_img_mask_csv(
+            cfg.get("tile_train_csv")
+            or base / "train" / lesion / "img_mask.csv")
+        va_i, va_m = read_img_mask_csv(
+            cfg.get("tile_val_csv") or base / "val" / lesion / "img_mask.csv")
+    else:
+        imgs, masks = get_datapath(Path(cfg["train_img_path"]),
+                                   Path(cfg["train_mask_path"]),
+                                   cfg.get("lesion_type", "EX"))
+        (tr_i, tr_m), (va_i, va_m) = train_val_split(
+            imgs, masks, val_size=float(cfg.get("val_size", 0.2)), seed=seed)
     kw = dict(gray=cfg.get("gray", False),
               ben_transform=cfg.get("use_ben_transform", False))
     train_ds = OneLesionSegmentation(tr_i, tr_m, **kw)

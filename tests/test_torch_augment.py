@@ -3,9 +3,10 @@
 JAX's PRNG streams cannot be reproduced in torch, so each JAX op's scalars
 and noise are derived from its key here, repeating the op's own ``split``
 order, and handed to the port's ``apply_*``: images at 1e-4 × 255, masks
-exactly. The ``advanced`` and ``normal`` policies are compared the same
-way: every gate, pick and op draw recovered from one key (for a few keys)
-and fed to the port policy in its draw order through a scripted generator.
+exactly. The ``advanced``, ``normal`` and ``advanced_vessel`` policies are
+compared the same way: every gate, pick and op draw recovered from one key
+(for a few keys) and fed to the port policy in its draw order through a
+scripted generator.
 """
 
 import numpy as np
@@ -84,6 +85,21 @@ def test_shift_scale_rotate_matches_jax(seed):
         *_ssr_params(key, H, W))
     _close_img(got_img, want_img)
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_random_scale_matches_jax(seed):
+    """RandomScale on JAX's draw: a zoom in or out about the centre."""
+    img, mask = _sample(seed)
+    key = jax.random.PRNGKey(20 + seed)
+    want_img, want_mask = JI.random_scale(key, jnp.asarray(img),
+                                          jnp.asarray(mask))
+    got_img, got_mask = TI.apply_random_scale(
+        torch.from_numpy(img), torch.from_numpy(mask), _u(key, 0.5, 2.0))
+    _close_img(got_img, want_img)
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+    assert 0.5 <= TI.draw_random_scale(torch.Generator().manual_seed(seed)
+                                       ) < 2.0
 
 
 def test_warp_orders_match_map_coordinates():
@@ -187,6 +203,14 @@ def _advanced_script(s, key):
     return taken
 
 
+def _vessel_script(s, key):
+    """advanced_vessel: RandomScale's gate and draw, then advanced."""
+    k0, rest = jax.random.split(key)
+    taken = _maybe_script(s, k0, 0.5, lambda s, k: s.items.append(
+        ("u", 0.5, 2.0, _u(k, 0.5, 2.0))))
+    return [taken] + _advanced_script(s, rest)
+
+
 def _normal_script(s, key):
     ks = jax.random.split(key, 4)
     return [_maybe_script(s, ks[0], 0.5, lambda s, k: None),
@@ -195,14 +219,16 @@ def _normal_script(s, key):
             _maybe_script(s, ks[3], 0.5, _noise_script)]
 
 
-@pytest.mark.parametrize("policy", ["advanced", "normal"])
+@pytest.mark.parametrize("policy", ["advanced", "normal",
+                                    "advanced_vessel"])
 def test_policy_matches_jax_at_its_draws(policy, monkeypatch):
     script = Script()
     for name in ("uniform", "randint", "draw_gauss_noise"):
         monkeypatch.setattr(TI, name, getattr(script, name))
     jhard = jax.jit(JT.get_transform(policy)(image_size=H).hard)
     tpol = TT.get_transform(policy)(image_size=H)
-    make = _advanced_script if policy == "advanced" else _normal_script
+    make = {"advanced": _advanced_script, "normal": _normal_script,
+            "advanced_vessel": _vessel_script}[policy]
     seen = set()
     img, mask = _sample(5, w=H)     # square, as after resize_pair
     for k in range(8):
@@ -221,7 +247,7 @@ def test_policy_matches_jax_at_its_draws(policy, monkeypatch):
 
 
 def test_unported_policies_raise():
-    for name in ("easy", "easy_v2", "medium", "advanced_vessel"):
+    for name in ("easy", "easy_v2", "medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TT.get_transform(name)(image_size=32)
     with pytest.raises(KeyError):

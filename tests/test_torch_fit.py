@@ -182,6 +182,9 @@ def test_trainer_refuses_what_is_not_ported(extra):
 
 
 def test_train_model_refuses_tile_data(tmp_path):
-    with pytest.raises(NotImplementedError, match="item E"):
-        train_model("tile", {"data_type": "tile"}, models_root=str(tmp_path),
-                    device="cpu")
+    """Tile mode reads the patch lists of ``build_dataframe``; without one
+    it stops before building a model."""
+    with pytest.raises(FileNotFoundError, match="img_mask.csv"):
+        train_model("tile", {"data_type": "tile",
+                             "processed_root": str(tmp_path / "none")},
+                    models_root=str(tmp_path), device="cpu")

@@ -44,11 +44,10 @@ ORI = (96, 128)
 NEAR = 1e-4
 
 
-@pytest.fixture(scope="module")
-def run(tmp_path_factory):
-    """The run directory, the test tree and both packages' test_tta
-    results."""
-    root = tmp_path_factory.mktemp("tta_run")
+def write_run_dir(root: Path) -> Path:
+    """``root/models/IDRiD/EX/run``: config.json of the fp32 flagship at
+    ``SCALE`` and its weights as ``checkpoints/best.ckpt``, written by the
+    JAX package."""
     logdir = root / "models" / "IDRiD" / "EX" / "run"
     (logdir / "checkpoints").mkdir(parents=True)
     (logdir / "config.json").write_text(json.dumps({
@@ -59,6 +58,15 @@ def run(tmp_path_factory):
     save_checkpoint(logdir / "checkpoints" / "best.ckpt",
                     {"model_state_dict": variables, "metric": 0.5,
                      "epoch": 1})
+    return logdir
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """The run directory, the test tree and both packages' test_tta
+    results."""
+    root = tmp_path_factory.mktemp("tta_run")
+    logdir = write_run_dir(root)
     make_idrid_tree(root / "data", lesion_type="EX", n_train=0, n_test=3,
                     size=ORI)
     test = {"test_img_path": str(root / "data" / "test" / "image"),
@@ -169,8 +177,6 @@ def test_evaluate_matches_root_evaluate(run, monkeypatch):
                 assert abs(a - b) <= 2e-4, (g, w)
             else:
                 assert a == b, (g, w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tevaluate.main(argv + ["--tiled"])
     logging.getLogger().handlers.clear()   # root evaluate.py's basicConfig
 
 
@@ -207,6 +213,10 @@ TRAIN_MODULES = ("ops.losses", "optim.optimizers", "optim.schedulers",
                  "train.param_groups", "train.trainer", "utils.seeding",
                  "utils.tb", "analysis.visualize", "data.transforms",
                  "data.datasets")
+# the experiment drivers and what they call besides inference and training
+PIPELINE_MODULES = ("utils.grid", "ops.tiling", "analysis.stat_result",
+                    "analysis.stat_result_vessel", "data.patches",
+                    "pipeline", "pipeline_vessel")
 
 
 def test_port_imports_without_jax_or_image_packages():
@@ -231,6 +241,7 @@ def test_port_imports_without_jax_or_image_packages():
     listed, last = out.stdout.strip().splitlines()[-2:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
-    # the train slice's modules are among those imported
+    # the train slice's and the drivers' modules are among those imported
     pkg = "eyediseasesegmentation_tpu_torch."
-    assert {pkg + m for m in TRAIN_MODULES} <= set(listed.split()), listed
+    assert {pkg + m for m in TRAIN_MODULES + PIPELINE_MODULES} <= \
+        set(listed.split()), listed

@@ -1,5 +1,7 @@
 """Port parity: the TTA predictor (d4, none, flip, hflip, and d4 in vessel
-mode) against the JAX ``TTAPredictor``.
+mode) against the JAX ``TTAPredictor``; the aliases the fixed-size
+flagship cannot take raise in both packages (the size-free parity of
+``multiscale`` / ``five_crop`` / ``ten_crop`` is in test_torch_tiling.py).
 
 Two raw uint8 images of 96×144 at scale_size 64 go through resize + pad +
 normalize, the views of the fp32 flagship (shared with
@@ -48,10 +50,23 @@ def test_predictor_matches_jax(tta, resize):
 
 
 def test_unported_aliases_and_mixed_sizes_raise():
+    """The axial flagship takes one input size: where an alias feeds it
+    another (``multiscale``'s monolithic scale-2 leg at the default
+    ``multiscale_max_res``, the half-size crops), JAX raises ValueError
+    while tracing and the port raises it too. Unknown aliases and a batch
+    of another size than the pinned ``ori_hw`` raise as well."""
+    jmodel, variables, _ = jax_flagship()
     model = torch_flagship()
+    raw = _raw(2)[:1]
     for alias in ("multiscale", "five_crop", "ten_crop"):
-        with pytest.raises(NotImplementedError):
-            TTAPredictor(model, CONFIG, tta=alias)
+        with pytest.raises(ValueError):
+            JTTAPredictor(jmodel, variables, CONFIG, tta=alias,
+                          ori_hw=raw.shape[1:3]).predict(raw)
+        with pytest.raises(ValueError, match="relative-position"):
+            TTAPredictor(model, CONFIG, tta=alias,
+                         ori_hw=raw.shape[1:3]).predict(raw)
+    with pytest.raises(KeyError, match="Unknown TTA alias"):
+        TTAPredictor(model, CONFIG, tta="d8")
     predictor = TTAPredictor(model, CONFIG, tta="d4", ori_hw=(96, 144))
     with pytest.raises(ValueError, match="ori_hw"):
         predictor.predict(_raw(2)[:, :80])
