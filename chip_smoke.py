@@ -74,7 +74,19 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    launches are all wmma; and ``tiled_predict`` and the multiscale tiled
    legs of an fp32 base_dim-4 flagship, card against CPU on logits within
    ``SLICE_TOL`` × max|logit|. Launch counts are held per path (each path
-   between a reset and a read of the counts).
+   between a reset and a read of the counts);
+9. ensemble and zoo: ``ensemble.predict``'s steps, the figure
+   aside, over two flagship members (phase 7's run and a second run
+   directory in phase 6's form with weights of another seed; bf16,
+   ``pair_up``) on phase 8's 2 test images in one batch of 2: the
+   ensemble within ``ENSEMBLE_TOL`` of the members' mean, K1 24 / K2 8
+   launches (2 member forwards, all sm90), ``mean_auc`` in [0, 1], uint8
+   masks in {0, 1} at full size; one bf16 d4 ``predict`` of one full-size
+   image for each of six zoo models (``ZOO_FULL``: only the axial UNet++
+   launches a kernel, K1 6 a forward on sm90), images/sec and peak memory
+   per model; and one fp32 64² forward of every registered name (and of
+   Unet / UNet++ on the axial encoder at base_dim 2) on the card against
+   the CPU within ``SLICE_TOL`` × max|logit|.
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -200,6 +212,18 @@ VESSEL_CONFIG = dict(
                       base_dim=VESSEL_SCALE // 32))
 CPU_TILED_HW = (300, 400)           # card against CPU: 4 windows of 256
 RESULT_CSVS = ("sn", "ppv", "sp", "iou", "dice")
+# phase 9: the ensemble's members, the zoo at full width, the card against
+# the CPU on every registered name
+ENSEMBLE_SEED = SEED + 20           # the second member's weights
+ENSEMBLE_TOL = 1e-6                 # ensemble against the members' mean
+AXIAL = "BoTSER50_Axial_Imagenet_3"
+ZOO_FULL = {"resnet34_unet32": {}, "UnetPlusPlus": {
+                "encoder_name": AXIAL, "decoder_attention_type": "scse"},
+            "resnet50_attunet": {}, "seresnext50_fpncat128": {},
+            "resnet34_deeplab128": {}, "classic_unet": {}}
+ZOO_K1_PER_FORWARD = 6              # layer4 of the non-star UNet++: 3 blocks
+ZOO_PARITY_SIZE = 64                # card against CPU: the axial ones at
+                                    # base_dim 2
 
 
 class SmokeFailure(Exception):
@@ -659,7 +683,7 @@ def expected_counts(mode, forwards):
             "conv3x3": 0}
 
 
-def build_model(dtype, device, state=None, mode="off"):
+def build_model(dtype, device, state=None, mode="off", seed=SEED):
     import torch
     from eyediseasesegmentation_tpu_torch import models as zoo
 
@@ -668,7 +692,7 @@ def build_model(dtype, device, state=None, mode="off"):
     model = zoo.get_model("unetplusplusstar", params, training=False,
                           dtype=dtype, device="cpu")
     if state is None:
-        zoo.init_random(model, torch.Generator().manual_seed(SEED))
+        zoo.init_random(model, torch.Generator().manual_seed(seed))
     else:
         model.load_state_dict(state)
     return model.to(device)
@@ -902,8 +926,8 @@ class ArrayTestSet:
                 "mask": reference_gt_roundtrip(self.masks[i], self.scale)}
 
 
-def write_run_dir(logdir):
-    """A run directory from the port alone: config.json and the seed-0
+def write_run_dir(logdir, seed=SEED):
+    """A run directory from the port alone: config.json and the ``seed``
     weights as ``checkpoints/best.ckpt`` in the JAX package's format."""
     import torch
     from eyediseasesegmentation_tpu_torch.convert import torch_to_flax
@@ -917,7 +941,7 @@ def write_run_dir(logdir):
               "dataset_name": "IDRiD", "inference_dtype": "bfloat16"}
     (logdir / "checkpoints").mkdir(parents=True)
     (logdir / "config.json").write_text(json.dumps(config))
-    state = build_model(torch.float32, "cpu").state_dict()
+    state = build_model(torch.float32, "cpu", seed=seed).state_dict()
     save_checkpoint(logdir / "checkpoints" / "best.ckpt",
                     {"model_state_dict": torch_to_flax(state),
                      "metric": 0.0, "epoch": 0})
@@ -1753,7 +1777,192 @@ def phase_pipeline(device, card, root, logdir):
     print(f"pipeline phase {seconds:.1f} s; {card}", flush=True)
     return {"test_tta": whole, "tiled": tiles, "multiscale": multiscale,
             "vessel": vessel, "vessel_train_k1": vessel_train_k1,
-            "card_vs_cpu_k1": card_k1, "seconds": seconds}
+            "card_vs_cpu_k1": card_k1, "seconds": seconds, "test": test}
+
+
+def ensemble_pass(root, logdir, test):
+    """``ensemble.predict``'s steps, the figure aside: phase 7's run and a
+    second flagship run (phase 6's form, weights of ``ENSEMBLE_SEED``) as
+    the members, the pipeline phase's 2 test images in one batch of 2.
+    Returns the launch counts of the pass."""
+    import numpy as np
+    import torch
+    from eyediseasesegmentation_tpu_torch.analysis.aucpr import (
+        pr_curve_report)
+    from eyediseasesegmentation_tpu_torch.data import (
+        TestSegmentation, batch_iterator, get_datapath, prefetch)
+    from eyediseasesegmentation_tpu_torch.infer.ensemble import (
+        EnsemblePredictor, get_best_models)
+    from eyediseasesegmentation_tpu_torch.infer.tta import (masks_to_uint8,
+                                                            tta_pass)
+
+    second = root / "models" / "IDRiD" / "EX" / "ensemble_b"
+    write_run_dir(second, seed=ENSEMBLE_SEED)
+    # the ensemble reads the masks as they are (no GT round trip)
+    ds = TestSegmentation(*get_datapath(Path(test["test_img_path"]),
+                                        Path(test["test_mask_path"]), "EX"))
+    members = get_best_models([logdir, second], tta="d4", ori_hw=FULL_HW)
+    check([p.model.dtype for p in members] == [torch.bfloat16] * 2
+          and all(p.config["model_params"]["pallas_tail"] == TTA_MODE
+                  for p in members),
+          f"ensemble: members {[p.config['model_params'] for p in members]}")
+    ensemble = EnsemblePredictor(members)
+    batches = list(batch_iterator(ds, TTA_BATCH))
+    check(len(batches) == 1 and batches[0]["n_valid"] == PIPE_IMAGES,
+          f"ensemble: {len(batches)} batches")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                               # the path starts here
+    totals, prob_batches, t_pass = tta_pass(ensemble, prefetch(iter(batches)))
+    counts, by_variant = read_counts(), read_variant_counts()  # ... ends
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == expected_counts(TTA_MODE, len(members)),
+          f"ensemble: launches {counts} for {len(members)} member forwards, "
+          f"expected {expected_counts(TTA_MODE, len(members))}")
+    check_variants("ensemble", by_variant, "sm90")
+    probs = prob_batches[0][0]
+    check_probs("ensemble", probs, (TTA_BATCH, *FULL_HW))
+    each = [p.predict(batches[0]["image"]) for p in members]
+    err = (probs - (each[0] + each[1]) / 2).abs().max().item()
+    check(err <= ENSEMBLE_TOL,
+          f"ensemble: {err} from the members' mean > {ENSEMBLE_TOL}")
+    spread = (each[0] - each[1]).abs().max().item()
+    mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
+    check(np.isfinite(mean_auc) and 0.0 <= mean_auc <= 1.0,
+          f"ensemble: mean_auc {mean_auc}")
+    thresholds = pr_curve_report(totals["tp"], totals["ap"], totals["pp"],
+                                 "ensemble", figure_dir=None)
+    m8, _ = masks_to_uint8(probs, thresholds["optimal_threshold_2"], False)
+    m8 = m8.cpu().numpy()
+    check(m8.dtype == np.uint8 and m8.shape[1:] == FULL_HW
+          and set(np.unique(m8).tolist()) <= {0, 1},
+          f"ensemble: masks {m8.dtype} {m8.shape}")
+    print(f"ensemble of 2 flagships (d4 bf16 pallas_tail={TTA_MODE}): "
+          f"{PIPE_IMAGES} images of {FULL_HW[0]}x{FULL_HW[1]} in one batch: "
+          f"pass {t_pass:.4f} s ({PIPE_IMAGES / t_pass:.4f} images/sec), peak "
+          f"memory {peak / 2**30:.3f} GiB; against the members' mean "
+          f"max_abs_err {err:.3e} (members differ by up to {spread:.3f}); "
+          f"mean_auc {mean_auc:.6f}, thresholds {thresholds}; launches "
+          f"{counts} by variant {by_variant['axial_attention']} / "
+          f"{by_variant['decode_pair']} (K1 / K2)", flush=True)
+    del members, ensemble, prob_batches, probs, each
+    torch.cuda.empty_cache()
+    return counts
+
+
+def zoo_full_width(device, image):
+    """One bf16 d4 ``predict`` of one full-size image at 1024² for each
+    model of ``ZOO_FULL`` (seeded weights), after a first call that carries
+    cuDNN's tuning. Returns K1's launches in the timed calls."""
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
+
+    cfg = {"scale_size": SCALE, "dataset_name": "IDRiD"}
+    k1, line = 0, []
+    for i, (name, params) in enumerate(ZOO_FULL.items()):
+        model = zoo.get_model(name, params, training=False,
+                              dtype=torch.bfloat16, device="cpu")
+        zoo.init_random(model, torch.Generator().manual_seed(SEED + 30 + i))
+        predictor = TTAPredictor(model.to(device), cfg, tta="d4",
+                                 ori_hw=FULL_HW)
+        t0 = time.perf_counter()
+        predictor.predict(image)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                           # the path starts here
+        t0 = time.perf_counter()
+        probs = predictor.predict(image)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        counts, by_variant = read_counts(), read_variant_counts()  # ends
+        check_probs(f"zoo {name}", probs, (1, *FULL_HW))
+        axial = params.get("encoder_name") == AXIAL
+        want = {k: 0 for k in counts}
+        want["axial_attention"] = ZOO_K1_PER_FORWARD if axial else 0
+        check(counts == want, f"zoo {name}: launches {counts}, expected "
+                              f"{want}")
+        if axial:
+            check_variants(f"zoo {name}", by_variant, "sm90")
+            k1 += counts["axial_attention"]
+        line.append(f"{name}{'(axial, scse)' if axial else ''} "
+                    f"{1 / t:.4f} images/sec ({t:.4f} s, first call "
+                    f"{t_first:.2f} s), peak "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        del model, predictor, probs
+        torch.cuda.empty_cache()
+    print(f"zoo at full width, one {FULL_HW[0]}x{FULL_HW[1]} image, d4 bf16 "
+          f"at {SCALE}²: {'; '.join(line)}; K1 {k1} launches (sm90)",
+          flush=True)
+    return k1
+
+
+def zoo_card_vs_cpu(device):
+    """Every registered name but the flagship at its registry defaults,
+    and Unet / UnetPlusPlus on the axial encoder at base_dim 2 (the axial
+    encoder fits 32·base_dim only), built by ``get_model`` on the CPU and
+    on the card (its default device) with the CPU model's seeded weights:
+    one fp32 forward at 64² on each, within ``SLICE_TOL`` × max|logit|.
+    Returns the worst ratio."""
+    import numpy as np
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.models.encoders import get_encoder
+
+    cases = [(n, {}) for n in zoo.list_models() if n != "unetplusplusstar"]
+    cases += [(n, {"encoder_name": AXIAL, "decoder_attention_type": "scse"})
+              for n in ("Unet", "UnetPlusPlus")]
+    rng = np.random.default_rng(SEED + 40)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 3, ZOO_PARITY_SIZE,
+                                             ZOO_PARITY_SIZE))
+                         .astype(np.float32))
+    worst = 0.0
+    for i, (name, params) in enumerate(cases):
+        model, card = (zoo.get_model(name, params, training=False,
+                                     dtype=torch.float32, device=where)
+                       for where in ("cpu", None))
+        check(model_device(card).type == "cuda",
+              f"zoo: get_model built {name} on {model_device(card)}")
+        if params:
+            for m in (model, card):
+                m.encoder = get_encoder(AXIAL, base_dim=ZOO_PARITY_SIZE
+                                        // 32)[0].to(model_device(m))
+        zoo.init_random(model, torch.Generator().manual_seed(SEED + 50 + i))
+        card.load_state_dict(model.state_dict())
+        with torch.inference_mode():
+            want = model(x)
+            got = card(x.to(device)).cpu()
+        err = (got - want).abs().max().item()
+        bound = SLICE_TOL * want.abs().max().item()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and err <= bound,
+              f"zoo card vs CPU {name} {params}: max_abs_err {err} > {bound}")
+        worst = max(worst, err / max(want.abs().max().item(), 1e-30))
+        del model, card
+    torch.cuda.empty_cache()
+    print(f"zoo card vs CPU, fp32 at {ZOO_PARITY_SIZE}²: {len(cases)} models "
+          f"(the {len(cases) - 2} registered names and the 2 axial pieces "
+          f"at base_dim {ZOO_PARITY_SIZE // 32}), worst max|Δlogit| / "
+          f"max|logit| {worst:.3e} (<= {SLICE_TOL})", flush=True)
+    return worst
+
+
+def phase_ensemble_zoo(device, card, root, logdir, test):
+    """The ensemble of two flagships, the zoo at full width and the zoo
+    card against the CPU. Returns the launch counts of each path."""
+    import numpy as np
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    ensemble = ensemble_pass(root, logdir, test)
+    image = np.asarray(Image.open(sorted(Path(test["test_img_path"])
+                                         .iterdir())[0]).convert("RGB"))[None]
+    zoo_k1 = zoo_full_width(device, image)
+    zoo_card_vs_cpu(device)
+    seconds = time.perf_counter() - t_phase
+    print(f"ensemble and zoo phase {seconds:.1f} s; {card}", flush=True)
+    return {"ensemble": ensemble, "zoo_k1": zoo_k1, "seconds": seconds}
 
 
 def phase_profile_train(device):
@@ -1903,6 +2112,8 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             k1_train_model, logdir = phase_train_model(device, Path(tmp))
             pipe = phase_pipeline(device, card, Path(tmp), logdir)
+            ens = phase_ensemble_zoo(device, card, Path(tmp), logdir,
+                                     pipe["test"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1935,7 +2146,9 @@ def main(argv=None) -> int:
                   "vessel_wmma_launches": pipe["vessel"]["axial_attention"],
                   "vessel_train_model_wmma_launches":
                       pipe["vessel_train_k1"],
-                  "card_vs_cpu_wmma_launches": pipe["card_vs_cpu_k1"]}),
+                  "card_vs_cpu_wmma_launches": pipe["card_vs_cpu_k1"]},
+              ensemble_launches=ens["ensemble"]["axial_attention"],
+              zoo_launches=ens["zoo_k1"]),
         entry("scse_conv", counts["v1"]["scse_conv"], conv["scse_conv"],
               variant=conv["scse_conv"]["variant"],
               variants=by_variant["v1"]["scse_conv"]),
@@ -1946,15 +2159,19 @@ def main(argv=None) -> int:
                         "variants": by_variant["pair_up"]["decode_pair"],
                         **{k: up[k] for k in up}},
               pipeline={f"{path}_launches": pipe[path]["decode_pair"]
-                        for path in ("test_tta", "tiled", "multiscale")}),
+                        for path in ("test_tta", "tiled", "multiscale")},
+              ensemble_launches=ens["ensemble"]["decode_pair"]),
         entry("conv3x3", k4_launches, conv["conv3x3"],
               variant=conv["conv3x3"]["variant"], variants=k4_variants,
               shapes=conv["conv3x3"]["shapes"]),
     ]
-    check(all(k["launches"] > 0 and k["up_part0"]["launches"] > 0
-              if "up_part0" in k else k["launches"] > 0 for k in kernels),
-          f"a kernel of the path was never launched: "
-          f"{[(k['name'], k['launches']) for k in kernels]}")
+    launched = [(k["name"], field, k[field]) for k in kernels
+                for field in ("launches", "ensemble_launches", "zoo_launches")
+                if field in k]
+    launched += [(k["name"], "up_part0", k["up_part0"]["launches"])
+                 for k in kernels if "up_part0" in k]
+    check(all(n > 0 for _, _, n in launched),
+          f"a kernel of the path was never launched: {launched}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Weights of the JAX package ↔ the port's ``state_dict``.
 
 The port's submodules carry the flax scope names, so a leaf's torch key is its
-flax path with the module names kept, a short table for flax's auto-names,
-and one layout rule per leaf kind:
+flax path with the module names kept, a short table for the auto-names of a
+few module kinds, and one layout rule per leaf kind:
 
 * conv ``kernel`` HWIO → ``weight`` OIHW; Dense ``kernel`` (in, out) →
   ``weight`` (out, in); ``bias`` as is;
@@ -22,22 +22,59 @@ writes with ``save_checkpoint`` loads in the JAX package.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
+from typing import (Any, Dict, Iterator, List, Mapping, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
-# flax auto-named scopes → the port's submodule names (None: the flax
-# wrapper's only child, whose parameters the port holds directly)
-AUTO_NAMES = {
-    "BatchNorm_0": "bn",              # ConvBNReLU
-    "SCSEAttention_0": None,          # Attention('scse')
-    "Conv_0": "cse_reduce",           # SCSEAttention
-    "Conv_1": "cse_expand",
-    "Dense_0": "fc1",                 # SEBlock, ClassificationHead
-    "Dense_1": "fc2",
-}
+# The module kinds whose children the port names apart from flax, each by
+# the names of ALL its children, scopes and leaves (flax name → port name):
+# a name is changed only inside a module of its kind, because other modules
+# reuse the same auto-names for other things (AttentionGate's and ASPP's
+# ``Conv_0`` and ``BatchNorm_0``, which the port keeps as they are). A
+# module is recognised by its children's flax names in ``flax_to_torch`` and
+# by their port names in ``torch_to_flax``, so the two sets must tell the
+# kinds apart on both sides: RecurrentConv's flax ``bn`` is the port's
+# ``norm``.
+RENAMED = (
+    {"conv": "conv", "BatchNorm_0": "bn"},        # ConvBNReLU
+    {"conv": "conv", "bn": "norm"},               # RecurrentConv
+    {"Dense_0": "fc1", "Dense_1": "fc2"},         # SEBlock
+    {"Dense_0": "fc1"},                           # ClassificationHead
+)
+# SCSEAttention: the two 1×1 convs of the channel gate, beside the leaves
+# ``sse_kernel`` / ``sse_bias`` (the port's ``sse`` conv). Attention('scse')
+# holds it as the auto-named scope ``SCSEAttention_0``, whose parameters the
+# port holds directly.
+_SCSE = "SCSEAttention_0"
+_SCSE_NAMES = {"Conv_0": "cse_reduce", "Conv_1": "cse_expand"}
 _KEPT = ("to_qkv", "to_kq", "to_v", "relative")
+
+
+def _children(paths) -> Dict[Tuple[str, ...], set]:
+    """Each module path → the names of its children, scopes and leaves, from
+    the paths of the leaves."""
+    kids: Dict[Tuple[str, ...], set] = {}
+    for path in paths:
+        for i in range(len(path)):
+            kids.setdefault(tuple(path[:i]), set()).add(path[i])
+    return kids
+
+
+def _renamed(scopes: Sequence[str], kids, to_torch: bool) -> List[str]:
+    """``scopes`` with each name renamed by the kind of its parent module
+    (``RENAMED``), flax → port or port → flax."""
+    out = []
+    for i, name in enumerate(scopes):
+        siblings = kids.get(tuple(scopes[:i]), set())
+        for table in RENAMED:
+            names = table if to_torch else {v: k for k, v in table.items()}
+            if siblings == set(names):
+                name = names[name]
+                break
+        out.append(name)
+    return out
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -53,11 +90,14 @@ def _oihw(a: np.ndarray) -> np.ndarray:
     return a.transpose(3, 2, 0, 1)
 
 
-def _torch_key(collection: str, path: Tuple[str, ...],
-               a: np.ndarray) -> Tuple[List[str], np.ndarray]:
+def _torch_key(collection: str, path: Tuple[str, ...], a: np.ndarray,
+               kids) -> Tuple[List[str], np.ndarray]:
     *scopes, leaf = path
-    mod = [AUTO_NAMES.get(s, s) for s in scopes]
-    mod = [s for s in mod if s is not None]
+    mod = _renamed(scopes, kids, to_torch=True)
+    mod = [_SCSE_NAMES[s] if s in _SCSE_NAMES
+           and "sse_kernel" in kids[tuple(scopes[:i])] else s
+           for i, s in enumerate(mod)]
+    mod = [s for s in mod if s != _SCSE]
     if collection == "params":
         if leaf == "kernel" and a.ndim in (2, 4):
             return mod + ["weight"], (_oihw(a) if a.ndim == 4 else a.T)
@@ -92,14 +132,17 @@ def flax_to_torch(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """``{"params", "batch_stats"}`` (nested dicts of arrays) → state_dict.
     Raises on a leaf no rule covers, or on two leaves with one torch key."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    for collection, tree in variables.items():
+    for collection in variables:
         if collection not in ("params", "batch_stats"):
             raise KeyError(f"unexpected flax collection '{collection}'")
+    kids = _children(path for tree in variables.values()
+                     for path, _ in _leaves(tree))
+    for collection, tree in variables.items():
         for path, value in _leaves(tree):
             if isinstance(value, torch.Tensor):   # a bfloat16 leaf
                 value = value.float().numpy()
             parts, a = _torch_key(collection, path,
-                                  np.asarray(value, dtype=np.float32))
+                                  np.asarray(value, dtype=np.float32), kids)
             key = ".".join(parts)
             if key in out:
                 raise KeyError(f"two flax leaves map to '{key}'")
@@ -127,19 +170,14 @@ def load_flax(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
     return model
 
 
-_FLAX_NAMES = {v: k for k, v in AUTO_NAMES.items() if v is not None}
-# the port's modules that flax wraps in an auto-named scope of their own
-# (Attention('scse') holds its SCSEAttention as SCSEAttention_0)
-_SCSE = "SCSEAttention_0"
-_WRAPPED = {"cse_reduce", "cse_expand"}
-
-
-def _flax_scopes(mod: List[str]) -> List[str]:
+def _flax_scopes(mod: List[str], kids) -> List[str]:
     out = []
-    for name in mod:
-        if name in _WRAPPED:
-            out.append(_SCSE)
-        out.append(_FLAX_NAMES.get(name, name))
+    cse = {v: k for k, v in _SCSE_NAMES.items()}
+    for name in _renamed(mod, kids, to_torch=False):
+        if name in cse:
+            out += [_SCSE, cse[name]]
+        else:
+            out.append(name)
     return out
 
 
@@ -156,6 +194,7 @@ def torch_to_flax(model_or_state_dict: Union[torch.nn.Module, Mapping]
              if isinstance(model_or_state_dict, torch.nn.Module)
              else model_or_state_dict)
     keys = [k.split(".") for k in state]
+    kids = _children(keys)
     attention = {tuple(k[:-1]) for k in keys if k[-1] in ("to_qkv", "to_kq")}
     out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for parts, value in zip(keys, state.values()):
@@ -189,7 +228,7 @@ def torch_to_flax(model_or_state_dict: Union[torch.nn.Module, Mapping]
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         *scopes, name = path
         node = out[collection]
-        for s in _flax_scopes(scopes):
+        for s in _flax_scopes(scopes, kids):
             node = node.setdefault(s, {})
         if name in node:
             raise KeyError(f"two torch keys map to flax leaf "

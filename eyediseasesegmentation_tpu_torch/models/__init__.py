@@ -1,9 +1,11 @@
 """Model registry (torch port).
 
-Counterpart of ``eyediseasesegmentation_tpu/models/__init__.py``. Only the
-flagship ``unetplusplusstar`` is ported; other registry names raise KeyError
-(ROADMAP.md lists the rest of the zoo). ``get_model`` applies the same
-inference-time demotions as the JAX package.
+Counterpart of ``eyediseasesegmentation_tpu/models/__init__.py``: the
+flagship ``unetplusplusstar`` and the families on the ResNet encoders or on
+no encoder (Unet, UNet++, Attention U-Net, FPN, DeepLabV3+, the classic
+U-Nets). Other registry names raise KeyError (ROADMAP.md lists the rest of
+the zoo). ``get_model`` applies the same inference-time demotions as the
+JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +16,12 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .attentionunet import AttentionUnet
+from .classic import AttUNet, ClassicUNet, R2AttUNet, R2UNet, SAUnet
+from .deeplabv3plus import DeepLabV3Plus
+from .fpn import FPN
+from .unet import Unet
+from .unetplusplus import UnetPlusPlus
 from .unetplusplusstar import UnetPlusPlusStar
 
 __all__ = ["MODEL_REGISTRY", "list_models", "get_model", "get_preprocessing_fn",
@@ -23,10 +31,13 @@ __all__ = ["MODEL_REGISTRY", "list_models", "get_model", "get_preprocessing_fn",
 _ALIASES = {"clfhead": "clf_head"}
 
 
-def _factory(cls) -> Callable[..., Any]:
+def _factory(cls, **fixed) -> Callable[..., Any]:
+    """A registry entry: ``cls`` built from ``fixed`` updated by the
+    caller's params."""
     fields = set(inspect.signature(cls).parameters)
 
     def make(**params):
+        params = {**fixed, **params}
         # keys that are not constructor fields are dropped, as in the JAX
         # registry: the reference's torch-only keys (encoder_weights,
         # pretrained, encoder_depth, ...) and the JAX layout knobs
@@ -47,6 +58,34 @@ def _factory(cls) -> Callable[..., Any]:
 
 MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "unetplusplusstar": _factory(UnetPlusPlusStar),
+    "unetplusplus_deepsup": _factory(UnetPlusPlus),
+    "Unet": _factory(Unet),
+    "resnet18_unet32": _factory(Unet, encoder_name="resnet18"),
+    "resnet34_unet32": _factory(Unet, encoder_name="resnet34"),
+    "resnet50_unet32": _factory(Unet, encoder_name="resnet50"),
+    "seresnet50_unet32": _factory(Unet, encoder_name="seresnet50"),
+    "resnet50_attunet": _factory(AttentionUnet, encoder_name="resnet50"),
+    "seresnet50_attunet": _factory(AttentionUnet, encoder_name="seresnet50"),
+    "rrcnn_unet": _factory(R2UNet),
+    "sa_unet": _factory(SAUnet),
+    "classic_unet": _factory(ClassicUNet),
+    "resnet34_fpncat128": _factory(FPN, encoder_name="resnet34",
+                                   fpn_channels=128),
+    "seresnext50_fpncat128": _factory(FPN, encoder_name="seresnext50",
+                                      fpn_channels=128),
+    "resnet152_fpncat256": _factory(FPN, encoder_name="resnet152",
+                                    fpn_channels=256),
+    "resnet34_deeplab128": _factory(DeepLabV3Plus, encoder_name="resnet34"),
+    "deeplabv3plus_deepsup": _factory(DeepLabV3Plus),
+    "seresnext101_deeplab256": _factory(DeepLabV3Plus,
+                                        encoder_name="seresnext101"),
+    "LeeJunHyun_impl_att": _factory(AttUNet),
+    "LeeJunHyun_impl_R2U_Net": _factory(R2UNet),
+    "LeeJunHyun_impl_R2AttU_Net": _factory(R2AttUNet),
+    # the smp class names the reference resolves by reflection
+    "UnetPlusPlus": _factory(UnetPlusPlus),
+    "FPN": _factory(FPN),
+    "DeepLabV3Plus": _factory(DeepLabV3Plus),
 }
 
 

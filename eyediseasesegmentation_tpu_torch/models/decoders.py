@@ -1,10 +1,11 @@
-"""UNet++ decoder with cross-axial skip gates (torch, NCHW).
+"""U-Net family decoders (torch, NCHW).
 
 Counterpart of ``eyediseasesegmentation_tpu/models/decoders.py``, logical
 path: ``DecoderBlock`` upsamples ×2 and either gates the skip with scSE over
 the concat or, on ``use_catt`` nodes, with height+width cross-axial attention
-at C/16 width; ``UnetPlusPlusDecoder`` is the nested dense grid of the star
-variant.
+at C/16 width; ``UnetPlusPlusDecoder`` is the nested dense grid (``star``:
+cross-axial gates on x_0_0, x_1_1 and x_0_1, the flagship's variant);
+``UnetDecoder`` is the plain smp.Unet decoder.
 
 ``pallas_tail`` (the JAX package's name, kept so that a config carries over)
 routes the scSE skip nodes of the high-resolution tail through the fused
@@ -164,16 +165,44 @@ class DecoderBlock(PortModule):
         return y
 
 
+class UnetDecoder(PortModule):
+    """Plain smp.Unet decoder: one ``DecoderBlock`` per decoder channel over
+    the reversed feature pyramid, the last without a skip."""
+
+    def __init__(self, encoder_channels: Sequence[int],
+                 decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
+                 attention_type: Optional[str] = None,
+                 drop_block_prob: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        enc = list(encoder_channels[1:])[::-1]  # head first
+        in_ch = [enc[0]] + list(decoder_channels[:-1])
+        skip_ch = enc[1:] + [0] * len(decoder_channels)
+        self.n_blocks = len(decoder_channels)
+        for i, out in enumerate(decoder_channels):
+            self.add_module(f"block{i}", DecoderBlock(
+                in_ch[i], skip_ch[i], out, attention_type=attention_type,
+                drop_block_prob=drop_block_prob, dtype=dtype))
+
+    def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
+        feats = features[1:][::-1]
+        x, skips = feats[0], feats[1:]
+        for i in range(self.n_blocks):
+            x = getattr(self, f"block{i}")(
+                x, skips[i] if i < len(skips) else None)
+        return x
+
+
 class UnetPlusPlusDecoder(PortModule):
-    """Nested UNet++ dense-grid decoder, star variant: the skips of the
-    nodes with layer index 0 or 1 (x_0_0, x_1_1, x_0_1) are gated by
-    cross-axial attention. Returns the final map, or
+    """Nested UNet++ dense-grid decoder. ``star``: the skips of the nodes
+    with layer index 0 or 1 (x_0_0, x_1_1, x_0_1) are gated by cross-axial
+    attention (the flagship's variant). Returns the final map, or
     (final, [x_3_3, x_2_3, x_1_3]) with ``deep_supervision``."""
 
     def __init__(self, encoder_channels: Sequence[int],
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  base_dim: int = 32, attention_type: Optional[str] = None,
-                 deep_supervision: bool = False,
+                 deep_supervision: bool = False, star: bool = False,
                  pallas_tail: Any = False, fast_min_res: int = 512,
                  drop_block_prob: float = 0.1,
                  dtype: torch.dtype = torch.float32):
@@ -198,7 +227,7 @@ class UnetPlusPlusDecoder(PortModule):
                 in_ch = skip_channels[layer_idx - 1]
             self.add_module(f"x_{depth_idx}_{layer_idx}", DecoderBlock(
                 in_ch, skip_ch, out_ch, base_dim=base_dim, level=layer_idx,
-                use_catt=layer_idx in (0, 1),
+                use_catt=star and layer_idx in (0, 1),
                 attention_type=attention_type, pallas_tail=pallas_tail,
                 drop_block_prob=drop_block_prob, dtype=dtype))
 

@@ -1,12 +1,14 @@
 """Feature-pyramid encoders (torch, NCHW).
 
-Counterpart of ``eyediseasesegmentation_tpu/models/encoders.py`` for the
-flagship's encoder: BoTSER50, an SE-ResNet50 whose layer4 is three
-axial-attention blocks, the last two sharing weights. Every encoder returns
-the 6-level pyramid ``[x, c0(/2), c1(/4), c2(/8), c3(/16), c4(/32)]``.
-A ``pretrained`` BoTSER50 (the ``_Imagenet`` configs) freezes the BatchNorms
-of its stem and layers 1-3: they normalise with their running statistics in
-training too and never update them.
+Counterpart of ``eyediseasesegmentation_tpu/models/encoders.py``: the
+generic ResNet encoder (basic or bottleneck blocks, optional squeeze-excite,
+grouped 3×3 convs for the SE-ResNeXt family; ``RESNET_CONFIGS``) and the
+flagship's BoTSER50, an SE-ResNet50 whose layer4 is three axial-attention
+blocks, the last two sharing weights. Every encoder returns the 6-level
+pyramid ``[x, c0(/2), c1(/4), c2(/8), c3(/16), c4(/32)]``. A ``pretrained``
+BoTSER50 (the ``_Imagenet`` configs) freezes the BatchNorms of its stem and
+layers 1-3: they normalise with their running statistics in training too
+and never update them.
 """
 
 from __future__ import annotations
@@ -21,25 +23,63 @@ from .modules.axial import AxialAttentionBlock
 from .modules.layers import BatchNorm, PortModule, SEBlock, conv2d
 
 
+class BasicBlock(PortModule):
+    """3×3 (stride, pad 1) → 3×3 → optional squeeze-excite, with a 1×1
+    projection shortcut where the shape changes (resnet18 / resnet34)."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, features: int, strides: int = 1,
+                 use_se: bool = False, frozen_bn: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.strides, self.dtype = strides, dtype
+        self.conv1 = nn.Conv2d(cin, features, 3, bias=False)
+        self.bn1 = BatchNorm(features, dtype, frozen=frozen_bn)
+        self.conv2 = nn.Conv2d(features, features, 3, bias=False)
+        self.bn2 = BatchNorm(features, dtype, frozen=frozen_bn)
+        if use_se:
+            self.se = SEBlock(features, dtype=dtype)
+        self.has_down = cin != features or strides != 1
+        if self.has_down:
+            self.down_conv = nn.Conv2d(cin, features, 1, bias=False)
+            self.down_bn = BatchNorm(features, dtype, frozen=frozen_bn)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = torch.relu(self.bn1(conv2d(x, self.conv1, dt, self.strides, 1)))
+        y = self.bn2(conv2d(y, self.conv2, dt, padding=1))
+        if hasattr(self, "se"):
+            y = self.se(y)
+        if self.has_down:
+            x = self.down_bn(conv2d(x, self.down_conv, dt,
+                                    stride=self.strides))
+        return torch.relu(y + x)
+
+
 class Bottleneck(PortModule):
-    """SE bottleneck: 1×1 → 3×3 (stride, pad 1) → 1×1 → squeeze-excite,
-    with a 1×1 projection shortcut where the shape changes."""
+    """Bottleneck: 1×1 → 3×3 (stride, pad 1, ``groups``) → 1×1 to
+    ``out_features`` (0: 4 × ``features``) → optional squeeze-excite, with
+    a 1×1 projection shortcut where the shape changes."""
 
     expansion = 4
 
     def __init__(self, cin: int, features: int, strides: int = 1,
-                 frozen_bn: bool = False,
+                 groups: int = 1, use_se: bool = True,
+                 frozen_bn: bool = False, out_features: int = 0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.strides, self.dtype = strides, dtype
-        out_ch = features * self.expansion
+        out_ch = out_features or features * self.expansion
         self.conv1 = nn.Conv2d(cin, features, 1, bias=False)
         self.bn1 = BatchNorm(features, dtype, frozen=frozen_bn)
-        self.conv2 = nn.Conv2d(features, features, 3, bias=False)
+        self.conv2 = nn.Conv2d(features, features, 3, bias=False,
+                               groups=groups)
         self.bn2 = BatchNorm(features, dtype, frozen=frozen_bn)
         self.conv3 = nn.Conv2d(features, out_ch, 1, bias=False)
         self.bn3 = BatchNorm(out_ch, dtype, frozen=frozen_bn)
-        self.se = SEBlock(out_ch, dtype=dtype)
+        if use_se:
+            self.se = SEBlock(out_ch, dtype=dtype)
         self.has_down = cin != out_ch or strides != 1
         if self.has_down:
             self.down_conv = nn.Conv2d(cin, out_ch, 1, bias=False)
@@ -49,7 +89,9 @@ class Bottleneck(PortModule):
         dt = self.dtype
         y = torch.relu(self.bn1(conv2d(x, self.conv1, dt)))
         y = torch.relu(self.bn2(conv2d(y, self.conv2, dt, self.strides, 1)))
-        y = self.se(self.bn3(conv2d(y, self.conv3, dt)))
+        y = self.bn3(conv2d(y, self.conv3, dt))
+        if hasattr(self, "se"):
+            y = self.se(y)
         if self.has_down:
             x = self.down_bn(conv2d(x, self.down_conv, dt,
                                     stride=self.strides))
@@ -57,14 +99,24 @@ class Bottleneck(PortModule):
 
 
 class ResNetEncoder(PortModule):
-    """SE-bottleneck ResNet encoder with the plain stem: 7×7/2 conv with
-    pad 3, BN, ReLU (the /2 feature), then a 3×3/2 max-pool with pad 1."""
+    """ResNet-family encoder with the plain stem: 7×7/2 conv with pad 3,
+    BN, ReLU (the /2 feature), then a 3×3/2 max-pool with pad 1, then
+    ``num_stages`` stages of ``block`` ('basic' or 'bottleneck'). A
+    bottleneck's inner width is ``width_factor`` × the stage's planes (2.0
+    with ``groups`` 32: the ResNeXt-32x4d family)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 num_stages: int = 4, frozen_bn: bool = False,
+                 block: str = "bottleneck", use_se: bool = False,
+                 groups: int = 1, num_stages: int = 4,
+                 frozen_bn: bool = False, width_factor: float = 1.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if block not in ("basic", "bottleneck"):
+            raise ValueError(f"Unknown ResNet block {block!r}")
         self.dtype = dtype
+        exp = Bottleneck.expansion if block == "bottleneck" else 1
+        self.out_channels = [3, 64] + [64 * (2 ** i) * exp
+                                       for i in range(num_stages)]
         self.stem_conv = nn.Conv2d(3, 64, 7, bias=False)
         self.stem_bn = BatchNorm(64, dtype, frozen=frozen_bn)
         self.block_names: List[List[str]] = []
@@ -74,10 +126,18 @@ class ResNetEncoder(PortModule):
             names = []
             for i in range(n_blocks):
                 name = f"layer{stage + 1}_block{i}"
-                self.add_module(name, Bottleneck(
-                    cin, planes, strides=2 if (i == 0 and stage > 0) else 1,
-                    frozen_bn=frozen_bn, dtype=dtype))
-                cin = planes * Bottleneck.expansion
+                strides = 2 if (i == 0 and stage > 0) else 1
+                if block == "bottleneck":
+                    mod = Bottleneck(
+                        cin, int(planes * width_factor), strides=strides,
+                        groups=groups, use_se=use_se, frozen_bn=frozen_bn,
+                        out_features=planes * exp, dtype=dtype)
+                else:
+                    mod = BasicBlock(cin, planes, strides=strides,
+                                     use_se=use_se, frozen_bn=frozen_bn,
+                                     dtype=dtype)
+                self.add_module(name, mod)
+                cin = planes * exp
                 names.append(name)
             self.block_names.append(names)
 
@@ -106,8 +166,9 @@ class BoTSER50Encoder(PortModule):
     def __init__(self, base_dim: int = 32, pretrained: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.seresnet = ResNetEncoder(stage_sizes=(3, 4, 6, 3), num_stages=3,
-                                      frozen_bn=pretrained, dtype=dtype)
+        self.seresnet = ResNetEncoder(stage_sizes=(3, 4, 6, 3), use_se=True,
+                                      num_stages=3, frozen_bn=pretrained,
+                                      dtype=dtype)
         self.layer4_first = AxialAttentionBlock(
             1024, 2048, down_sample=True, dim=base_dim * 2, heads=8,
             dtype=dtype)
@@ -132,9 +193,26 @@ BOTSER50_AXIAL = {"BoTSER50_Axial_Imagenet": True,
                   "BoTSER50_Axial_scratch": False}
 
 
+# the ResNet family (JAX encoders.py RESNET_CONFIGS)
+RESNET_CONFIGS = {
+    "resnet18": dict(stage_sizes=(2, 2, 2, 2), block="basic"),
+    "resnet34": dict(stage_sizes=(3, 4, 6, 3), block="basic"),
+    "resnet50": dict(stage_sizes=(3, 4, 6, 3), block="bottleneck"),
+    "resnet101": dict(stage_sizes=(3, 4, 23, 3), block="bottleneck"),
+    "resnet152": dict(stage_sizes=(3, 8, 36, 3), block="bottleneck"),
+    "seresnet50": dict(stage_sizes=(3, 4, 6, 3), block="bottleneck",
+                       use_se=True),
+    "seresnext50": dict(stage_sizes=(3, 4, 6, 3), block="bottleneck",
+                        use_se=True, groups=32, width_factor=2.0),
+    "seresnext101": dict(stage_sizes=(3, 4, 23, 3), block="bottleneck",
+                         use_se=True, groups=32, width_factor=2.0),
+}
+
+
 def get_encoder(name: str, base_dim: int = 32,
                 dtype: torch.dtype = torch.float32, remat: bool = False):
-    """Build an encoder and its out_channels list by registry name."""
+    """Build an encoder and its out_channels list by registry name.
+    ``base_dim`` sizes BoTSER50's axial tables (32 for a 1024² input)."""
     if remat:
         raise NotImplementedError(
             "remat (per-block gradient checkpointing) is not ported yet; it "
@@ -144,6 +222,9 @@ def get_encoder(name: str, base_dim: int = 32,
         enc = BoTSER50Encoder(base_dim=base_dim,
                               pretrained=BOTSER50_AXIAL[name], dtype=dtype)
         return enc, list(enc.out_channels)
+    if name in RESNET_CONFIGS:
+        enc = ResNetEncoder(dtype=dtype, **RESNET_CONFIGS[name])
+        return enc, list(enc.out_channels)
     raise KeyError(f"Encoder '{name}' is not ported yet (ported: "
-                   f"{list(BOTSER50_AXIAL)}); see ROADMAP.md for the rest of "
-                   "the zoo")
+                   f"{list(BOTSER50_AXIAL) + list(RESNET_CONFIGS)}); see "
+                   "ROADMAP.md for the rest of the zoo")

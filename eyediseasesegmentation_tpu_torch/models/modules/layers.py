@@ -60,10 +60,11 @@ def wide(dtype: torch.dtype) -> torch.dtype:
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
            stride: int = 1, padding: int = 0) -> torch.Tensor:
     """``conv`` applied in ``dtype`` (its fp32 weights cast for the call).
-    The port's ``nn.Conv2d`` modules only hold OIHW weights; stride and
-    padding are given here."""
+    The port's ``nn.Conv2d`` modules hold OIHW weights, their groups and
+    dilation; stride and padding are given here."""
     bias = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, stride, padding)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, stride, padding,
+                    conv.dilation, conv.groups)
 
 
 def batch_moments(x: torch.Tensor, axes) -> tuple:
@@ -164,21 +165,22 @@ class DropBlock2d(NoiseModule):
 
 
 class ConvBNReLU(PortModule):
-    """conv 3×3 (SAME, no bias) → DropBlock → BN → ReLU. A list input is
-    the channel concat of its parts."""
+    """conv ``kernel_size``² (SAME, no bias) → DropBlock → BN → ReLU. A
+    list input is the channel concat of its parts."""
 
     def __init__(self, cin: int, cout: int,
                  dtype: torch.dtype = torch.float32,
-                 drop_block_prob: float = 0.1):
+                 drop_block_prob: float = 0.1, kernel_size: int = 3):
         super().__init__()
         self.dtype = dtype
-        self.conv = nn.Conv2d(cin, cout, 3, bias=False)
+        self.conv = nn.Conv2d(cin, cout, kernel_size, bias=False)
         self.drop_block = DropBlock2d(drop_block_prob, block_size=7)
         self.bn = BatchNorm(cout, dtype)
 
     def forward(self, x: Parts) -> torch.Tensor:
         x = torch.cat([p.to(self.dtype) for p in output_parts(x)], 1)
-        y = conv2d(x, self.conv, self.dtype, padding=1)
+        y = conv2d(x, self.conv, self.dtype,
+                   padding=self.conv.kernel_size[0] // 2)
         return torch.relu(self.bn(self.drop_block(y)))
 
     def folded_params(self):
@@ -284,17 +286,21 @@ def Attention(attention_type: Optional[str], channels: int,
 
 
 class SegmentationHead(PortModule):
-    """3×3 conv (SAME, bias) to class logits, returned in fp32 (or
-    wider)."""
+    """``kernel_size``² conv (SAME, bias) to class logits, then bilinear
+    ×``upsampling`` in the compute dtype, returned in fp32 (or wider)."""
 
     def __init__(self, cin: int, classes: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, kernel_size: int = 3,
+                 upsampling: int = 1):
         super().__init__()
-        self.dtype = dtype
-        self.conv = nn.Conv2d(cin, classes, 3)
+        self.dtype, self.upsampling = dtype, upsampling
+        self.conv = nn.Conv2d(cin, classes, kernel_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d(x, self.conv, self.dtype, padding=1)
+        y = conv2d(x, self.conv, self.dtype,
+                   padding=self.conv.kernel_size[0] // 2)
+        if self.upsampling > 1:
+            y = upsample(y, self.upsampling)
         return y.to(wide(self.dtype))
 
 
@@ -322,6 +328,14 @@ class ClassificationHead(NoiseModule):
         return s.to(wide(dt))
 
 
+def upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Bilinear ×``factor`` at half-pixel centres with edge clamp, NCHW (the
+    JAX package's ``jax.image.resize(..., "bilinear")`` to the multiple,
+    which does not antialias when it enlarges)."""
+    return F.interpolate(x, size=(factor * x.shape[2], factor * x.shape[3]),
+                         mode="bilinear", align_corners=False)
+
+
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Bilinear ×2 at half-pixel centres with edge clamp, NCHW."""
     return F.interpolate(x, scale_factor=2, mode="bilinear",
@@ -335,5 +349,97 @@ def upsample2x_w(x: torch.Tensor) -> torch.Tensor:
                          align_corners=False)
 
 
+def maxpool2x(x: torch.Tensor) -> torch.Tensor:
+    """2×2 max-pool, stride 2, no padding (odd edges dropped)."""
+    return F.max_pool2d(x, 2, stride=2)
+
+
 def output_parts(x: Parts) -> List[torch.Tensor]:
     return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+# The modules below keep flax's auto-names for their children (``Conv_0``,
+# ``BatchNorm_0``, ``ConvBNReLU_0``, ...): ``convert.py`` renames an
+# auto-name only inside the module kinds that the port names apart.
+
+class CBAMSpatial(PortModule):
+    """CBAM spatial attention: the channel mean and max, a
+    ``kernel_size``² conv (SAME, bias) to one map, and its sigmoid as the
+    gate."""
+
+    def __init__(self, kernel_size: int = 7,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.Conv_0 = nn.Conv2d(2, 1, kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
+        a = conv2d(a, self.Conv_0, self.dtype,
+                   padding=self.Conv_0.kernel_size[0] // 2)
+        return x * torch.sigmoid(a)
+
+
+class AttentionGate(PortModule):
+    """Additive attention gate (Attention U-Net): the skip ``x`` times
+    σ(BN(ψ(ReLU(W_g g + W_x x)))), every conv 1×1 with a bias. ``g`` is the
+    gating signal from the decoder, at the skip's size."""
+
+    def __init__(self, g_channels: int, x_channels: int, inter: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.Conv_0 = nn.Conv2d(g_channels, inter, 1)
+        self.Conv_1 = nn.Conv2d(x_channels, inter, 1)
+        self.Conv_2 = nn.Conv2d(inter, 1, 1)
+        self.BatchNorm_0 = BatchNorm(1, dtype)
+
+    def forward(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        a = torch.relu(conv2d(g, self.Conv_0, dt) + conv2d(x, self.Conv_1, dt))
+        a = self.BatchNorm_0(conv2d(a, self.Conv_2, dt))
+        return x * torch.sigmoid(a)
+
+
+class ASPP(PortModule):
+    """Atrous spatial pyramid pooling: a 1×1 branch, 3×3 branches dilated
+    by ``rates``, and image pooling (global mean, 1×1, broadcast), each to
+    ``features`` channels with BN and ReLU, concatenated and projected by a
+    1×1."""
+
+    def __init__(self, cin: int, features: int = 256,
+                 rates: Sequence[int] = (6, 12, 18),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype, self.rates = dtype, tuple(rates)
+        self.ConvBNReLU_0 = ConvBNReLU(cin, features, dtype, 0.0, 1)
+        for i, rate in enumerate(self.rates):
+            self.add_module(f"Conv_{i}", nn.Conv2d(cin, features, 3,
+                                                   bias=False, dilation=rate))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(features, dtype))
+        self.ConvBNReLU_1 = ConvBNReLU(cin, features, dtype, 0.0, 1)
+        self.ConvBNReLU_2 = ConvBNReLU((len(self.rates) + 2) * features,
+                                       features, dtype, 0.0, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [self.ConvBNReLU_0(x)]
+        for i, rate in enumerate(self.rates):
+            y = conv2d(x, getattr(self, f"Conv_{i}"), self.dtype,
+                       padding=rate)
+            outs.append(torch.relu(getattr(self, f"BatchNorm_{i}")(y)))
+        p = self.ConvBNReLU_1(x.mean((2, 3), keepdim=True))
+        outs.append(p.expand(-1, -1, x.shape[2], x.shape[3]))
+        return self.ConvBNReLU_2(outs)
+
+
+class DoubleConv(PortModule):
+    """(conv 3×3 → BN → ReLU) twice, the classic U-Net block."""
+
+    def __init__(self, cin: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.ConvBNReLU_0 = ConvBNReLU(cin, features, dtype, 0.0)
+        self.ConvBNReLU_1 = ConvBNReLU(features, features, dtype, 0.0)
+
+    def forward(self, x: Parts) -> torch.Tensor:
+        return self.ConvBNReLU_1(self.ConvBNReLU_0(x))

@@ -45,7 +45,8 @@ class UnetPlusPlusStar(PortModule):
         self.decoder = UnetPlusPlusDecoder(
             enc_channels, decoder_channels, base_dim=base_dim,
             attention_type=decoder_attention_type,
-            deep_supervision=deep_supervision, pallas_tail=pallas_tail,
+            deep_supervision=deep_supervision, star=True,
+            pallas_tail=pallas_tail,
             fast_min_res=fast_min_res, drop_block_prob=drop_block_prob,
             dtype=dtype)
         self.segmentation_head = SegmentationHead(

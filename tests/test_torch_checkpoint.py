@@ -7,8 +7,12 @@ same bytes as ``flax.serialization.msgpack_serialize`` (which sorts dict
 keys, as ``jax.tree_util`` does; the port does too), also for the chunked
 form of large arrays (the chunk size lowered through the modules'
 ``MAX_CHUNK_SIZE``) and for bfloat16 leaves, which the port reads without
-``ml_dtypes`` as ``torch.bfloat16`` tensors.
+``ml_dtypes`` as ``torch.bfloat16`` tensors. The two flagship files (about
+230 MB each) are written once, by a module fixture, and deleted after the
+module's last test.
 """
+
+import shutil
 
 import ml_dtypes
 import numpy as np
@@ -43,33 +47,49 @@ def _checkpoint_tree(variables):
     return {"model_state_dict": variables, "metric": 0.8125, "epoch": 7}
 
 
-def test_jax_checkpoint_loads_in_port(tmp_path):
+@pytest.fixture(scope="module")
+def flagship_files(tmp_path_factory):
+    """The flagship's variables written once by each package: by the JAX
+    package as ``jax/best.ckpt``, and by the port (from the port's model
+    through ``torch_to_flax``) as ``port/checkpoints/last.ckpt``."""
+    root = tmp_path_factory.mktemp("flagship_ckpt")
     _, variables, _ = jax_flagship()
-    path = tmp_path / "best.ckpt"
-    JC.save_checkpoint(path, _checkpoint_tree(variables))
+    files = {"jax": root / "jax" / "best.ckpt",
+             "port": root / "port" / "checkpoints" / "last.ckpt",
+             "port_variables": torch_to_flax(torch_flagship())}
+    JC.save_checkpoint(files["jax"], _checkpoint_tree(variables))
+    TC.save_checkpoint(files["port"],
+                       _checkpoint_tree(files["port_variables"]))
+    yield files
+    shutil.rmtree(root)
+
+
+def test_jax_checkpoint_loads_in_port(flagship_files):
+    _, variables, _ = jax_flagship()
+    path = flagship_files["jax"]
     got = TC.load_checkpoint(path)
     _assert_bit_equal(got, JC.load_checkpoint(path))
     _assert_bit_equal(got["model_state_dict"], variables)
     assert float(got["metric"]) == 0.8125 and int(got["epoch"]) == 7
 
 
-def test_port_checkpoint_loads_in_jax(tmp_path):
-    variables = torch_to_flax(torch_flagship())
-    path = tmp_path / "checkpoints" / "last.ckpt"
-    TC.save_checkpoint(path, _checkpoint_tree(variables))
+def test_port_checkpoint_loads_in_jax(flagship_files):
+    variables = flagship_files["port_variables"]
+    path = flagship_files["port"]
     assert sorted(p.name for p in path.parent.iterdir()) == ["last.ckpt"]
     got = JC.load_checkpoint(path)
     _assert_bit_equal(got["model_state_dict"], variables)
     assert float(got["metric"]) == 0.8125 and int(got["epoch"]) == 7
 
 
-def test_payload_matches_flax_bytes(tmp_path):
+def test_payload_matches_flax_bytes(flagship_files):
+    """The port's file of the port's model holds the same bytes as the JAX
+    package's file of the same weights (``torch_to_flax`` gives the JAX
+    variables back bit for bit: test_flax_to_torch_inverts_torch_to_flax)."""
     _, variables, _ = jax_flagship()
-    tree = _checkpoint_tree(variables)
-    JC.save_checkpoint(tmp_path / "jax.ckpt", tree)
-    TC.save_checkpoint(tmp_path / "port.ckpt", tree)
-    assert ((tmp_path / "port.ckpt").read_bytes()
-            == (tmp_path / "jax.ckpt").read_bytes())
+    _assert_bit_equal(flagship_files["port_variables"], variables)
+    assert (flagship_files["port"].read_bytes()
+            == flagship_files["jax"].read_bytes())
     # every kind of leaf the codec covers, every length class of the headers
     rng = np.random.RandomState(0)
     mixed = {"z": None, "b": [True, False], "ints": [0, 127, 128, 255, 256,

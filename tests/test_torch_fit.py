@@ -1,9 +1,12 @@
 """The port's ``fit`` / ``train_model`` on a tiny synthetic tree, against the
 JAX package's artifact contract.
 
-One module-scoped run: the flagship at ``base_dim=2`` trained by the port
-for 2 epochs at 64² (``advanced`` augmentation, fp32, on the CPU) on the
-JAX package's synthetic IDRiD tree (6 images of 48×64: 5 train, 1 val).
+One module-scoped run: ``classic_unet`` (filters 8-16, a few hundred KB of
+checkpoints; the flagship's own train step is held in
+test_torch_train_step.py) trained by the port for 2 epochs at 64²
+(``advanced`` augmentation, fp32, on the CPU) on the JAX package's
+synthetic IDRiD tree (6 images of 48×64: 5 train, 1 val), deleted with the
+module's last test.
 It must write the JAX layout (``config.json``, ``metrics.jsonl`` rows with
 the JAX trainer's keys, ``best`` / ``last`` / ``best_full`` checkpoints,
 the overlay strips); both packages' ``test_tta`` evaluate the run (the JAX
@@ -45,6 +48,11 @@ ROW_KEYS = {"epoch", "lr", "time", "train_loss", "train_dice", "train_iou",
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     root = tmp_path_factory.mktemp("fit")
+    yield _train(root)
+    shutil.rmtree(root)
+
+
+def _train(root):
     make_idrid_tree(root / "data", lesion_type="EX", n_train=6, n_test=2,
                     size=(48, 64))
     cfg = {"train_img_path": str(root / "data" / "train" / "image"),
@@ -52,10 +60,8 @@ def run(tmp_path_factory):
            "lesion_type": "EX", "dataset_name": "IDRiD", "scale_size": 64,
            "num_epochs": EPOCHS, "batch_size": 2, "is_fp16": False,
            "augmentation": "advanced", "num_workers": 0,
-           "model_name": "unetplusplusstar",
-           "model_params": {"encoder_name": "BoTSER50_Axial_Imagenet_3",
-                            "decoder_attention_type": "scse", "base_dim": 2,
-                            "classes": 1},
+           "model_name": "classic_unet",
+           "model_params": {"filters": [8, 16], "classes": 1},
            "criterion": {"bce": 0.8, "log_dice": 0.2}, "pos_weights": [5.0],
            # both test_tta then evaluate in fp32 (their default is bf16)
            "inference_dtype": "float32"}

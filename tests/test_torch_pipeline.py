@@ -8,9 +8,11 @@ the JAX package, and the port's ``pipeline`` / ``pipeline_vessel``
 same files: byte-identical CSVs, the same patch files and pixels. Tile-mode
 ``train_model`` is held to the JAX one's train and val lists (each
 package's ``Trainer`` replaced by a stub that records the datasets, so no
-JAX train step is compiled). The drivers run the port alone (1 epoch, the
-flagship at ``base_dim=2`` at 64², fp32 training, ``hflip`` TTA) on the JAX
-package's synthetic trees and must write the tree the root drivers write.
+JAX train step is compiled). The drivers run the port alone (1 epoch,
+``classic_unet`` at filters 8-16 at 64², fp32 training, ``hflip`` TTA; the
+run's subject is the tree, and its checkpoints take a few hundred KB where
+the flagship's took 1.2 GB) on the JAX package's synthetic trees and must
+write the tree the root drivers write.
 The trainer's TensorBoard sink is switched off here: it is a log, not part
 of that tree, and importing its writer costs more than the run.
 """
@@ -39,9 +41,8 @@ from eyediseasesegmentation_tpu_torch.train import trainer as ttrainer
 from eyediseasesegmentation_tpu_torch.utils import tb
 
 CSVS = ("sn", "ppv", "sp", "iou", "dice")
-MODEL_PARAMS = {"encoder_name": "BoTSER50_Axial_Imagenet_3",
-                "decoder_attention_type": "scse", "base_dim": 2,
-                "classes": 1}
+MODEL = {"model_name": "classic_unet",
+         "model_params": {"filters": [8, 16], "classes": 1}}
 
 
 def _write_masks(d, names, masks):
@@ -207,8 +208,8 @@ def _lesion_tree(root, tile):
 
 @pytest.fixture
 def run_root(tmp_path, monkeypatch):
-    """The working directory of a driver run; its checkpoints (about 1.2 GB
-    at full width) are deleted afterwards."""
+    """The working directory of a driver run; its checkpoints are deleted
+    afterwards."""
     monkeypatch.chdir(tmp_path)
     yield tmp_path
     shutil.rmtree(tmp_path / "models", ignore_errors=True)
@@ -229,7 +230,7 @@ def test_driver_writes_the_root_tree(kind, run_root, quiet_trainer):
         cfg = _lesion_tree(tmp_path, kind == "lesion_tile")
         driver, ds, lesion = pipeline, "IDRiD", "EX"
     cfg.update(scale_size=64, num_epochs=1, batch_size=2, is_fp16=False,
-               model_params=MODEL_PARAMS, pos_weights=[5.0])
+               pos_weights=[5.0], **MODEL)
     Path("override.json").write_text(json.dumps(cfg))
     logdir, result = driver.start_experiment(pipeline.parse_arg(
         ["--config", "override.json", "--exp_name", "e1", "--tta", "hflip",

@@ -16,6 +16,7 @@ threshold (counted; no more may differ). ``evaluate``'s tables agree within
 import importlib.util
 import json
 import logging
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -77,7 +78,8 @@ def run(tmp_path_factory):
                          ("port", test_tta, {"device": "cpu"})):
         cfg = {**test, "out_dir": str(root / name)}
         out[name] = fn(logdir, cfg, args, batch_size=2, **kw)
-    return {"root": root, "logdir": logdir, "test": test, **out}
+    yield {"root": root, "logdir": logdir, "test": test, **out}
+    shutil.rmtree(logdir / "checkpoints")     # the flagship's 230 MB
 
 
 def test_test_tta_scores_match_jax(run):
@@ -217,6 +219,10 @@ TRAIN_MODULES = ("ops.losses", "optim.optimizers", "optim.schedulers",
 PIPELINE_MODULES = ("utils.grid", "ops.tiling", "analysis.stat_result",
                     "analysis.stat_result_vessel", "data.patches",
                     "pipeline", "pipeline_vessel")
+# the zoo families and the ensemble
+ZOO_MODULES = ("models.unet", "models.unetplusplus", "models.classic",
+               "models.attentionunet", "models.fpn", "models.deeplabv3plus",
+               "infer.ensemble", "ensemble")
 
 
 def test_port_imports_without_jax_or_image_packages():
@@ -241,7 +247,8 @@ def test_port_imports_without_jax_or_image_packages():
     listed, last = out.stdout.strip().splitlines()[-2:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
-    # the train slice's and the drivers' modules are among those imported
+    # the train slice's, the drivers' and the zoo's modules are among
+    # those imported
     pkg = "eyediseasesegmentation_tpu_torch."
-    assert {pkg + m for m in TRAIN_MODULES + PIPELINE_MODULES} <= \
-        set(listed.split()), listed
+    assert {pkg + m for m in TRAIN_MODULES + PIPELINE_MODULES
+            + ZOO_MODULES} <= set(listed.split()), listed

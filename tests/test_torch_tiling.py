@@ -24,6 +24,7 @@ import functools
 import importlib.util
 import json
 import logging
+import shutil
 import sys
 from functools import partial
 from pathlib import Path
@@ -93,7 +94,8 @@ def run(tmp_path_factory):
                     size=ORI)
     test = {"test_img_path": str(root / "data" / "test" / "image"),
             "test_mask_path": str(root / "data" / "test" / "label")}
-    return {"root": root, "logdir": logdir, "test": test}
+    yield {"root": root, "logdir": logdir, "test": test}
+    shutil.rmtree(logdir / "checkpoints")     # the flagship's 230 MB
 
 
 @pytest.mark.parametrize("shape,window,overlap", [
