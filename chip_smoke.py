@@ -82,11 +82,16 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    ensemble within ``ENSEMBLE_TOL`` of the members' mean, K1 24 / K2 8
    launches (2 member forwards, all sm90), ``mean_auc`` in [0, 1], uint8
    masks in {0, 1} at full size; one bf16 d4 ``predict`` of one full-size
-   image for each of six zoo models (``ZOO_FULL``: only the axial UNet++
-   launches a kernel, K1 6 a forward on sm90), images/sec and peak memory
-   per model; and one fp32 64² forward of every registered name (and of
-   Unet / UNet++ on the axial encoder at base_dim 2) on the card against
-   the CPU within ``SLICE_TOL`` × max|logit|.
+   image for each of sixteen zoo models at registry width (``ZOO_FULL``:
+   the ResNet, EfficientNet and MobileNetV3 families, the classic U-Net,
+   UNet 3+, smp's Linknet / PSPNet / DeepLabV3 / PAN / MAnet, and the
+   models that launch kernels: the axial UNet++, K1 6 a forward, and the
+   flagship on ``BoTSER50_Imagenet`` under pair_up, K1 6 and K2 4 a
+   forward, all sm90), images/sec and peak memory per model; and one fp32
+   64² forward of every registered name (and of Unet / UNet++ on the axial
+   encoder at base_dim 2, Unet on densenet121 and the BoTSER50_Imagenet
+   flagship at base_dim 2, K1 6 and K2 4 on wmma) on the card against the
+   CPU within ``SLICE_TOL`` × max|logit|.
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -217,13 +222,27 @@ RESULT_CSVS = ("sn", "ppv", "sp", "iou", "dice")
 ENSEMBLE_SEED = SEED + 20           # the second member's weights
 ENSEMBLE_TOL = 1e-6                 # ensemble against the members' mean
 AXIAL = "BoTSER50_Axial_Imagenet_3"
+# the flagship on the BoTSER50 without the axial layer4: its decoder's
+# cross-axial gates run K1, its tail K2 (pair_up)
+BOTSER50_IMAGENET = {"encoder_name": "BoTSER50_Imagenet",
+                     "decoder_attention_type": "scse",
+                     "pallas_tail": TTA_MODE, "fast_min_res": FAST_MIN_RES}
 ZOO_FULL = {"resnet34_unet32": {}, "UnetPlusPlus": {
                 "encoder_name": AXIAL, "decoder_attention_type": "scse"},
             "resnet50_attunet": {}, "seresnext50_fpncat128": {},
-            "resnet34_deeplab128": {}, "classic_unet": {}}
-ZOO_K1_PER_FORWARD = 6              # layer4 of the non-star UNet++: 3 blocks
-ZOO_PARITY_SIZE = 64                # card against CPU: the axial ones at
-                                    # base_dim 2
+            "resnet34_deeplab128": {}, "classic_unet": {},
+            "Unet3Plus_Base": {}, "Linknet": {}, "PSPNet": {},
+            "DeepLabV3": {}, "PAN": {}, "MAnet": {}, "b4_unet32": {},
+            "mobilenetv3_attunet": {}, "b2_fpn_cat": {},
+            "unetplusplusstar": BOTSER50_IMAGENET}
+# launches a forward: layer4 of the axial UNet++ (3 blocks, K1); the
+# BoTSER50_Imagenet flagship's gates on x_0_0, x_1_1 and x_0_1 in H and W
+# (K1) and its 4 tail nodes (K2)
+ZOO_KERNELS_PER_FORWARD = {
+    "UnetPlusPlus": {"axial_attention": 6},
+    "unetplusplusstar": {"axial_attention": 6, "decode_pair": 4}}
+ZOO_PARITY_SIZE = 64                # card against CPU: the axial ones and
+                                    # the flagship at base_dim 2
 
 
 class SmokeFailure(Exception):
@@ -1853,13 +1872,14 @@ def ensemble_pass(root, logdir, test):
 def zoo_full_width(device, image):
     """One bf16 d4 ``predict`` of one full-size image at 1024² for each
     model of ``ZOO_FULL`` (seeded weights), after a first call that carries
-    cuDNN's tuning. Returns K1's launches in the timed calls."""
+    cuDNN's tuning. Returns the launches of each kernel in the timed
+    calls."""
     import torch
     from eyediseasesegmentation_tpu_torch import models as zoo
     from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
 
     cfg = {"scale_size": SCALE, "dataset_name": "IDRiD"}
-    k1, line = 0, []
+    totals, line = {}, []
     for i, (name, params) in enumerate(ZOO_FULL.items()):
         model = zoo.get_model(name, params, training=False,
                               dtype=torch.bfloat16, device="cpu")
@@ -1878,53 +1898,64 @@ def zoo_full_width(device, image):
         t = time.perf_counter() - t0
         counts, by_variant = read_counts(), read_variant_counts()  # ends
         check_probs(f"zoo {name}", probs, (1, *FULL_HW))
-        axial = params.get("encoder_name") == AXIAL
         want = {k: 0 for k in counts}
-        want["axial_attention"] = ZOO_K1_PER_FORWARD if axial else 0
+        want.update(ZOO_KERNELS_PER_FORWARD.get(name, {}))
         check(counts == want, f"zoo {name}: launches {counts}, expected "
                               f"{want}")
-        if axial:
+        if name in ZOO_KERNELS_PER_FORWARD:
             check_variants(f"zoo {name}", by_variant, "sm90")
-            k1 += counts["axial_attention"]
-        line.append(f"{name}{'(axial, scse)' if axial else ''} "
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        tag = {"UnetPlusPlus": "(axial, scse)",
+               "unetplusplusstar": "(BoTSER50_Imagenet, scse, pair_up)"}
+        line.append(f"{name}{tag.get(name, '')} "
                     f"{1 / t:.4f} images/sec ({t:.4f} s, first call "
                     f"{t_first:.2f} s), peak "
                     f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         del model, predictor, probs
         torch.cuda.empty_cache()
     print(f"zoo at full width, one {FULL_HW[0]}x{FULL_HW[1]} image, d4 bf16 "
-          f"at {SCALE}²: {'; '.join(line)}; K1 {k1} launches (sm90)",
+          f"at {SCALE}²: {'; '.join(line)}; launches {totals} (sm90)",
           flush=True)
-    return k1
+    return totals
 
 
 def zoo_card_vs_cpu(device):
-    """Every registered name but the flagship at its registry defaults,
-    and Unet / UnetPlusPlus on the axial encoder at base_dim 2 (the axial
-    encoder fits 32·base_dim only), built by ``get_model`` on the CPU and
-    on the card (its default device) with the CPU model's seeded weights:
-    one fp32 forward at 64² on each, within ``SLICE_TOL`` × max|logit|.
-    Returns the worst ratio."""
+    """Every registered name but the flagship at its registry defaults
+    (PAN built for the check's input size), Unet / UnetPlusPlus on the
+    axial encoder at base_dim 2 (the axial encoder fits 32·base_dim only),
+    Unet on densenet121 and the flagship on BoTSER50_Imagenet at base_dim 2
+    under pair_up (its 4 tail nodes at this size: ``fast_min_res`` scaled
+    with the input), built by ``get_model`` on the CPU and on the card (its
+    default device) with the CPU model's seeded weights: one fp32 forward
+    at 64² on each, within ``SLICE_TOL`` × max|logit|. The flagship's K1
+    and K2 launches on the card are held (wmma in fp32). Returns them."""
     import numpy as np
     import torch
     from eyediseasesegmentation_tpu_torch import models as zoo
     from eyediseasesegmentation_tpu_torch.models.encoders import get_encoder
 
-    cases = [(n, {}) for n in zoo.list_models() if n != "unetplusplusstar"]
+    cases = [(n, {"input_size": ZOO_PARITY_SIZE} if n == "PAN" else {})
+             for n in zoo.list_models() if n != "unetplusplusstar"]
     cases += [(n, {"encoder_name": AXIAL, "decoder_attention_type": "scse"})
               for n in ("Unet", "UnetPlusPlus")]
+    cases += [("Unet", {"encoder_name": "densenet121"}),
+              ("unetplusplusstar", dict(
+                  BOTSER50_IMAGENET, base_dim=ZOO_PARITY_SIZE // 32,
+                  fast_min_res=FAST_MIN_RES * ZOO_PARITY_SIZE // SCALE))]
+    flagship_want = ZOO_KERNELS_PER_FORWARD["unetplusplusstar"]
     rng = np.random.default_rng(SEED + 40)
     x = torch.from_numpy(rng.uniform(-1, 1, (1, 3, ZOO_PARITY_SIZE,
                                              ZOO_PARITY_SIZE))
                          .astype(np.float32))
-    worst = 0.0
+    worst, flagship = 0.0, {}
     for i, (name, params) in enumerate(cases):
         model, card = (zoo.get_model(name, params, training=False,
                                      dtype=torch.float32, device=where)
                        for where in ("cpu", None))
         check(model_device(card).type == "cuda",
               f"zoo: get_model built {name} on {model_device(card)}")
-        if params:
+        if params.get("encoder_name") == AXIAL:
             for m in (model, card):
                 m.encoder = get_encoder(AXIAL, base_dim=ZOO_PARITY_SIZE
                                         // 32)[0].to(model_device(m))
@@ -1932,20 +1963,30 @@ def zoo_card_vs_cpu(device):
         card.load_state_dict(model.state_dict())
         with torch.inference_mode():
             want = model(x)
+            reset_counts()
             got = card(x.to(device)).cpu()
+            counts, by_variant = read_counts(), read_variant_counts()
         err = (got - want).abs().max().item()
         bound = SLICE_TOL * want.abs().max().item()
         check(got.shape == want.shape and bool(torch.isfinite(got).all())
               and err <= bound,
               f"zoo card vs CPU {name} {params}: max_abs_err {err} > {bound}")
         worst = max(worst, err / max(want.abs().max().item(), 1e-30))
+        if name == "unetplusplusstar":
+            flagship = {k: n for k, n in counts.items() if n}
+            check(flagship == flagship_want,
+                  f"zoo card vs CPU {name}: launches {counts}, expected "
+                  f"{flagship_want}")
+            check_variants(f"zoo card vs CPU {name}", by_variant, "wmma")
         del model, card
     torch.cuda.empty_cache()
     print(f"zoo card vs CPU, fp32 at {ZOO_PARITY_SIZE}²: {len(cases)} models "
-          f"(the {len(cases) - 2} registered names and the 2 axial pieces "
-          f"at base_dim {ZOO_PARITY_SIZE // 32}), worst max|Δlogit| / "
-          f"max|logit| {worst:.3e} (<= {SLICE_TOL})", flush=True)
-    return worst
+          f"(the {len(cases) - 4} registered names, the 2 axial pieces at "
+          f"base_dim {ZOO_PARITY_SIZE // 32}, Unet on densenet121 and the "
+          f"BoTSER50_Imagenet flagship under {TTA_MODE}, launches "
+          f"{flagship} wmma), worst max|Δlogit| / max|logit| {worst:.3e} "
+          f"(<= {SLICE_TOL})", flush=True)
+    return flagship
 
 
 def phase_ensemble_zoo(device, card, root, logdir, test):
@@ -1958,11 +1999,12 @@ def phase_ensemble_zoo(device, card, root, logdir, test):
     ensemble = ensemble_pass(root, logdir, test)
     image = np.asarray(Image.open(sorted(Path(test["test_img_path"])
                                          .iterdir())[0]).convert("RGB"))[None]
-    zoo_k1 = zoo_full_width(device, image)
-    zoo_card_vs_cpu(device)
+    zoo_full = zoo_full_width(device, image)
+    zoo_parity = zoo_card_vs_cpu(device)
     seconds = time.perf_counter() - t_phase
     print(f"ensemble and zoo phase {seconds:.1f} s; {card}", flush=True)
-    return {"ensemble": ensemble, "zoo_k1": zoo_k1, "seconds": seconds}
+    return {"ensemble": ensemble, "zoo": zoo_full, "zoo_parity": zoo_parity,
+            "seconds": seconds}
 
 
 def phase_profile_train(device):
@@ -2148,7 +2190,9 @@ def main(argv=None) -> int:
                       pipe["vessel_train_k1"],
                   "card_vs_cpu_wmma_launches": pipe["card_vs_cpu_k1"]},
               ensemble_launches=ens["ensemble"]["axial_attention"],
-              zoo_launches=ens["zoo_k1"]),
+              zoo_launches=ens["zoo"]["axial_attention"],
+              zoo_card_vs_cpu_wmma_launches=ens["zoo_parity"][
+                  "axial_attention"]),
         entry("scse_conv", counts["v1"]["scse_conv"], conv["scse_conv"],
               variant=conv["scse_conv"]["variant"],
               variants=by_variant["v1"]["scse_conv"]),
@@ -2160,13 +2204,17 @@ def main(argv=None) -> int:
                         **{k: up[k] for k in up}},
               pipeline={f"{path}_launches": pipe[path]["decode_pair"]
                         for path in ("test_tta", "tiled", "multiscale")},
-              ensemble_launches=ens["ensemble"]["decode_pair"]),
+              ensemble_launches=ens["ensemble"]["decode_pair"],
+              zoo_launches=ens["zoo"]["decode_pair"],
+              zoo_card_vs_cpu_wmma_launches=ens["zoo_parity"][
+                  "decode_pair"]),
         entry("conv3x3", k4_launches, conv["conv3x3"],
               variant=conv["conv3x3"]["variant"], variants=k4_variants,
               shapes=conv["conv3x3"]["shapes"]),
     ]
     launched = [(k["name"], field, k[field]) for k in kernels
-                for field in ("launches", "ensemble_launches", "zoo_launches")
+                for field in ("launches", "ensemble_launches", "zoo_launches",
+                              "zoo_card_vs_cpu_wmma_launches")
                 if field in k]
     launched += [(k["name"], "up_part0", k["up_part0"]["launches"])
                  for k in kernels if "up_part0" in k]

@@ -4,8 +4,10 @@ The port's submodules carry the flax scope names, so a leaf's torch key is its
 flax path with the module names kept, a short table for the auto-names of a
 few module kinds, and one layout rule per leaf kind:
 
-* conv ``kernel`` HWIO → ``weight`` OIHW; Dense ``kernel`` (in, out) →
-  ``weight`` (out, in); ``bias`` as is;
+* conv ``kernel`` HWIO → ``weight`` OIHW (a depthwise kernel (kh, kw, 1,
+  C) → (C, 1, kh, kw)); a ``ConvTranspose_*`` kernel HWIO → IOHW flipped in
+  H and W (flax's transposed conv does not flip its kernel, torch's does);
+  Dense ``kernel`` (in, out) → ``weight`` (out, in); ``bias`` as is;
 * BatchNorm ``scale`` / ``bias`` and batch_stats ``mean`` / ``var`` →
   ``weight`` / ``bias`` / ``running_mean`` / ``running_var``; the axial
   norms' ``<name>_scale`` (…) go to the same four under ``<name>``;
@@ -90,6 +92,17 @@ def _oihw(a: np.ndarray) -> np.ndarray:
     return a.transpose(3, 2, 0, 1)
 
 
+def _transposed(scopes: Sequence[str]) -> bool:
+    """Whether the kernel under ``scopes`` is a flax ``ConvTranspose``'s."""
+    return bool(scopes) and scopes[-1].startswith("ConvTranspose")
+
+
+def _flip_iohw(a: np.ndarray, to_torch: bool) -> np.ndarray:
+    """HWIO → IOHW, or IOHW → HWIO, with H and W reversed."""
+    a = a[::-1, ::-1] if to_torch else a[..., ::-1, ::-1]
+    return a.transpose(2, 3, 0, 1)
+
+
 def _torch_key(collection: str, path: Tuple[str, ...], a: np.ndarray,
                kids) -> Tuple[List[str], np.ndarray]:
     *scopes, leaf = path
@@ -99,6 +112,8 @@ def _torch_key(collection: str, path: Tuple[str, ...], a: np.ndarray,
            for i, s in enumerate(mod)]
     mod = [s for s in mod if s != _SCSE]
     if collection == "params":
+        if leaf == "kernel" and a.ndim == 4 and _transposed(scopes):
+            return mod + ["weight"], _flip_iohw(a, to_torch=True)
         if leaf == "kernel" and a.ndim in (2, 4):
             return mod + ["weight"], (_oihw(a) if a.ndim == 4 else a.T)
         if leaf == "bias":
@@ -224,7 +239,9 @@ def torch_to_flax(model_or_state_dict: Union[torch.nn.Module, Mapping]
         else:
             raise KeyError(f"no conversion rule for torch key "
                            f"'{'.'.join(parts)}' of shape {a.shape}")
-        if path[-1] in ("kernel", "sse_kernel"):
+        if path[-1] == "kernel" and a.ndim == 4 and _transposed(mod):
+            a = _flip_iohw(a, to_torch=False)
+        elif path[-1] in ("kernel", "sse_kernel"):
             a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
         *scopes, name = path
         node = out[collection]

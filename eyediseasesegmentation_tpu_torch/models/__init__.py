@@ -1,11 +1,12 @@
 """Model registry (torch port).
 
 Counterpart of ``eyediseasesegmentation_tpu/models/__init__.py``: the
-flagship ``unetplusplusstar`` and the families on the ResNet encoders or on
-no encoder (Unet, UNet++, Attention U-Net, FPN, DeepLabV3+, the classic
-U-Nets). Other registry names raise KeyError (ROADMAP.md lists the rest of
-the zoo). ``get_model`` applies the same inference-time demotions as the
-JAX package.
+flagship ``unetplusplusstar``, the families on the ResNet, EfficientNet,
+MobileNetV3 and DenseNet encoders or on no encoder (Unet, UNet++, Attention
+U-Net, FPN, DeepLabV3+, the classic U-Nets, UNet 3+, and smp's Linknet,
+PSPNet, DeepLabV3, PAN and MAnet). Other registry names raise KeyError
+(ROADMAP.md lists the rest of the zoo). ``get_model`` applies the same
+inference-time demotions as the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from .attentionunet import AttentionUnet
 from .classic import AttUNet, ClassicUNet, R2AttUNet, R2UNet, SAUnet
 from .deeplabv3plus import DeepLabV3Plus
 from .fpn import FPN
+from .smp_extra import PAN, DeepLabV3, Linknet, MAnet, PSPNet
 from .unet import Unet
+from .unet3plus import UNet3Plus
 from .unetplusplus import UnetPlusPlus
 from .unetplusplusstar import UnetPlusPlusStar
 
@@ -64,11 +67,20 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "resnet34_unet32": _factory(Unet, encoder_name="resnet34"),
     "resnet50_unet32": _factory(Unet, encoder_name="resnet50"),
     "seresnet50_unet32": _factory(Unet, encoder_name="seresnet50"),
+    "b4_unet32": _factory(Unet, encoder_name="efficientnet-b4"),
+    "b2_effunet32": _factory(Unet, encoder_name="efficientnet-b2"),
+    "b4_effunet32": _factory(Unet, encoder_name="efficientnet-b4"),
     "resnet50_attunet": _factory(AttentionUnet, encoder_name="resnet50"),
     "seresnet50_attunet": _factory(AttentionUnet, encoder_name="seresnet50"),
+    "efficientnetb2_attunet": _factory(AttentionUnet,
+                                       encoder_name="efficientnet-b2"),
+    "mobilenetv3_attunet": _factory(AttentionUnet,
+                                    encoder_name="mobilenetv3"),
     "rrcnn_unet": _factory(R2UNet),
     "sa_unet": _factory(SAUnet),
     "classic_unet": _factory(ClassicUNet),
+    "b2_fpn_cat": _factory(FPN, encoder_name="efficientnet-b2",
+                           fpn_channels=128),
     "resnet34_fpncat128": _factory(FPN, encoder_name="resnet34",
                                    fpn_channels=128),
     "seresnext50_fpncat128": _factory(FPN, encoder_name="seresnext50",
@@ -79,6 +91,8 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "deeplabv3plus_deepsup": _factory(DeepLabV3Plus),
     "seresnext101_deeplab256": _factory(DeepLabV3Plus,
                                         encoder_name="seresnext101"),
+    "Unet3Plus_Base": _factory(UNet3Plus),
+    "Unet3Plus_DS": _factory(UNet3Plus, deep_supervision=True),
     "LeeJunHyun_impl_att": _factory(AttUNet),
     "LeeJunHyun_impl_R2U_Net": _factory(R2UNet),
     "LeeJunHyun_impl_R2AttU_Net": _factory(R2AttUNet),
@@ -86,6 +100,11 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "UnetPlusPlus": _factory(UnetPlusPlus),
     "FPN": _factory(FPN),
     "DeepLabV3Plus": _factory(DeepLabV3Plus),
+    "Linknet": _factory(Linknet),
+    "PSPNet": _factory(PSPNet),
+    "DeepLabV3": _factory(DeepLabV3),
+    "PAN": _factory(PAN),
+    "MAnet": _factory(MAnet),
 }
 
 
@@ -111,6 +130,8 @@ def _fill(model: torch.nn.Module, who: str, bn, kernel, bias,
             elif isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
                 leaves = {"weight": kernel(mod.weight[0].numel()),
                           "bias": bias}
+            elif isinstance(mod, torch.nn.ConvTranspose2d):   # (I, O, kh, kw)
+                leaves = {"weight": kernel(mod.weight[:, 0].numel())}
             elif isinstance(mod, RelativePosEnc2D):
                 leaves = {"relative": relative}
             for leaf in ("to_qkv", "to_kq", "to_v"):

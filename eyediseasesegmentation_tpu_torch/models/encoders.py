@@ -2,10 +2,12 @@
 
 Counterpart of ``eyediseasesegmentation_tpu/models/encoders.py``: the
 generic ResNet encoder (basic or bottleneck blocks, optional squeeze-excite,
-grouped 3×3 convs for the SE-ResNeXt family; ``RESNET_CONFIGS``) and the
+grouped 3×3 convs for the SE-ResNeXt family; ``RESNET_CONFIGS``), the
 flagship's BoTSER50, an SE-ResNet50 whose layer4 is three axial-attention
-blocks, the last two sharing weights. Every encoder returns the 6-level
-pyramid ``[x, c0(/2), c1(/4), c2(/8), c3(/16), c4(/32)]``. A ``pretrained``
+blocks, the last two sharing weights (``BoTSER50_Imagenet``: three SE
+bottlenecks instead), and by name the EfficientNet / MobileNetV3 / DenseNet
+encoders of ``effnet.py``. Every encoder returns the 6-level pyramid
+``[x, c0(/2), c1(/4), c2(/8), c3(/16), c4(/32)]``. A ``pretrained``
 BoTSER50 (the ``_Imagenet`` configs) freezes the BatchNorms of its stem and
 layers 1-3: they normalise with their running statistics in training too
 and never update them.
@@ -19,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .effnet import (_EFFNET_SCALE, DenseNetEncoder, EfficientNetEncoder,
+                     MobileNetV3Encoder, _round_filters)
 from .modules.axial import AxialAttentionBlock
 from .modules.layers import BatchNorm, PortModule, SEBlock, conv2d
 
@@ -155,42 +159,61 @@ class ResNetEncoder(PortModule):
 
 
 class BoTSER50Encoder(PortModule):
-    """SE-ResNet50 stem and layers 1-3, then layer4 = ``layer4_first``
-    (1024→2048, downsampling, dim 2·base_dim) and ``layer4_shared`` applied
-    twice (one module, shared weights: in training its BatchNorm statistics
-    move twice per step, as in flax). ``pretrained`` freezes the BatchNorms
-    of the stem and layers 1-3."""
+    """SE-ResNet50 stem and layers 1-3, then layer4. With ``use_axial``:
+    ``layer4_first`` (1024→2048, downsampling, dim 2·base_dim) and
+    ``layer4_shared`` applied twice (one module, shared weights: in training
+    its BatchNorm statistics move twice per step, as in flax). Without:
+    three SE bottlenecks ``layer4_block{0,1,2}`` (512 inner, 2048 out, the
+    first with stride 2), which JAX substitutes for the reference's dead
+    branch. ``pretrained`` freezes the BatchNorms of the stem and layers 1-3
+    (never layer4's)."""
 
     out_channels: Tuple[int, ...] = (3, 64, 256, 512, 1024, 2048)
 
     def __init__(self, base_dim: int = 32, pretrained: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 use_axial: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.use_axial = use_axial
         self.seresnet = ResNetEncoder(stage_sizes=(3, 4, 6, 3), use_se=True,
                                       num_stages=3, frozen_bn=pretrained,
                                       dtype=dtype)
-        self.layer4_first = AxialAttentionBlock(
-            1024, 2048, down_sample=True, dim=base_dim * 2, heads=8,
-            dtype=dtype)
-        self.layer4_shared = AxialAttentionBlock(
-            2048, 2048, down_sample=False, dim=base_dim, heads=8, dtype=dtype)
+        if use_axial:
+            self.layer4_first = AxialAttentionBlock(
+                1024, 2048, down_sample=True, dim=base_dim * 2, heads=8,
+                dtype=dtype)
+            self.layer4_shared = AxialAttentionBlock(
+                2048, 2048, down_sample=False, dim=base_dim, heads=8,
+                dtype=dtype)
+        else:
+            for i in range(3):
+                self.add_module(f"layer4_block{i}", Bottleneck(
+                    1024 if i == 0 else 2048, 512, strides=2 if i == 0 else 1,
+                    use_se=True, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         feats = self.seresnet(x)
-        y = self.layer4_first(feats[-1])
-        y = self.layer4_shared(y)
-        y = self.layer4_shared(y)
+        y = feats[-1]
+        if self.use_axial:
+            y = self.layer4_first(y)
+            y = self.layer4_shared(y)
+            y = self.layer4_shared(y)
+        else:
+            for i in range(3):
+                y = getattr(self, f"layer4_block{i}")(y)
         feats.append(y)
         return feats
 
 
-# the BoTSER50 configs with the axial layer4 and whether each is
-# ``pretrained`` (JAX encoders.py ENCODER_CONFIGS); ``pretrained`` only
-# freezes BN statistics in training, so at eval the four are one network
-BOTSER50_AXIAL = {"BoTSER50_Axial_Imagenet": True,
-                  "BoTSER50_Axial_Imagenet_2": True,
-                  "BoTSER50_Axial_Imagenet_3": True,
-                  "BoTSER50_Axial_scratch": False}
+# the BoTSER50 configs (JAX encoders.py ENCODER_CONFIGS); ``pretrained``
+# only freezes BN statistics in training, so at eval the four axial ones are
+# one network
+BOTSER50_CONFIGS = {
+    "BoTSER50_Axial_Imagenet": dict(pretrained=True, use_axial=True),
+    "BoTSER50_Axial_Imagenet_2": dict(pretrained=True, use_axial=True),
+    "BoTSER50_Axial_Imagenet_3": dict(pretrained=True, use_axial=True),
+    "BoTSER50_Axial_scratch": dict(pretrained=False, use_axial=True),
+    "BoTSER50_Imagenet": dict(pretrained=True, use_axial=False),
+}
 
 
 # the ResNet family (JAX encoders.py RESNET_CONFIGS)
@@ -209,6 +232,9 @@ RESNET_CONFIGS = {
 }
 
 
+EFFICIENTNETS = ("efficientnet-b0", "efficientnet-b2", "efficientnet-b4")
+
+
 def get_encoder(name: str, base_dim: int = 32,
                 dtype: torch.dtype = torch.float32, remat: bool = False):
     """Build an encoder and its out_channels list by registry name.
@@ -218,13 +244,24 @@ def get_encoder(name: str, base_dim: int = 32,
             "remat (per-block gradient checkpointing) is not ported yet; it "
             "comes with ROADMAP.md queue 1 item E (torch.utils.checkpoint "
             "per block)")
-    if name in BOTSER50_AXIAL:
-        enc = BoTSER50Encoder(base_dim=base_dim,
-                              pretrained=BOTSER50_AXIAL[name], dtype=dtype)
+    if name in BOTSER50_CONFIGS:
+        enc = BoTSER50Encoder(base_dim=base_dim, dtype=dtype,
+                              **BOTSER50_CONFIGS[name])
         return enc, list(enc.out_channels)
     if name in RESNET_CONFIGS:
         enc = ResNetEncoder(dtype=dtype, **RESNET_CONFIGS[name])
         return enc, list(enc.out_channels)
+    if name in EFFICIENTNETS:
+        variant = name.split("-")[1]
+        w = _EFFNET_SCALE[variant][0]
+        # the /2 level is stage 0's output (taken before the first stride 2)
+        return (EfficientNetEncoder(variant, dtype=dtype),
+                [3] + [_round_filters(c, w) for c in (16, 24, 40, 112, 320)])
+    if name == "mobilenetv3":
+        return MobileNetV3Encoder(dtype=dtype), [3, 16, 24, 40, 112, 160]
+    if name == "densenet121":
+        return DenseNetEncoder(dtype=dtype), [3, 64, 256, 512, 1024, 1024]
     raise KeyError(f"Encoder '{name}' is not ported yet (ported: "
-                   f"{list(BOTSER50_AXIAL) + list(RESNET_CONFIGS)}); see "
+                   f"{list(BOTSER50_CONFIGS) + list(RESNET_CONFIGS)} + "
+                   f"{list(EFFICIENTNETS)}, mobilenetv3, densenet121); see "
                    "ROADMAP.md for the rest of the zoo")

@@ -67,6 +67,23 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
                     conv.dilation, conv.groups)
 
 
+def conv2d_same(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
+                stride: int = 1) -> torch.Tensor:
+    """:func:`conv2d` with flax's ``padding="SAME"`` for an undilated
+    square kernel: per axis the total ``max((out − 1)·stride + k − in, 0)``
+    with ``out = ⌈in / stride⌉``, the low side ``total // 2`` and the high
+    side the rest. Asymmetric for an even kernel and for a stride-2 conv on
+    an even map (3×3: (0, 1)); there zeros are added by ``F.pad`` first,
+    elsewhere the pad goes to the conv."""
+    k, pads = conv.kernel_size[0], []
+    for n in (x.shape[3], x.shape[2]):
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    if len(set(pads)) == 1:
+        return conv2d(x, conv, dtype, stride, pads[0])
+    return conv2d(F.pad(x, pads), conv, dtype, stride)
+
+
 def batch_moments(x: torch.Tensor, axes) -> tuple:
     """Batch mean and biased variance ``E[x²] − E[x]²`` over ``axes`` in
     fp32 (fp64 for an fp64 input), as the JAX package computes them."""
@@ -164,9 +181,34 @@ class DropBlock2d(NoiseModule):
         return drop_block(x, self.draw(x), self.block_size)
 
 
+class Dropout(NoiseModule):
+    """flax's ``nn.Dropout``, the identity in eval or at ``rate`` 0. Train:
+    each element kept with probability ``1 − rate`` (:meth:`draw`) and the
+    kept ones scaled by its inverse (:func:`dropout`)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def draw(self, x: torch.Tensor) -> torch.Tensor:
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return u < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        return dropout(x, self.draw(x), self.rate)
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Apply dropout with the drawn ``keep`` mask (bool, ``x``'s shape)."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class ConvBNReLU(PortModule):
-    """conv ``kernel_size``² (SAME, no bias) → DropBlock → BN → ReLU. A
-    list input is the channel concat of its parts."""
+    """conv ``kernel_size``² (flax SAME: asymmetric for an even kernel, no
+    bias) → DropBlock → BN → ReLU. A list input is the channel concat of its
+    parts."""
 
     def __init__(self, cin: int, cout: int,
                  dtype: torch.dtype = torch.float32,
@@ -179,8 +221,7 @@ class ConvBNReLU(PortModule):
 
     def forward(self, x: Parts) -> torch.Tensor:
         x = torch.cat([p.to(self.dtype) for p in output_parts(x)], 1)
-        y = conv2d(x, self.conv, self.dtype,
-                   padding=self.conv.kernel_size[0] // 2)
+        y = conv2d_same(x, self.conv, self.dtype)
         return torch.relu(self.bn(self.drop_block(y)))
 
     def folded_params(self):
@@ -191,12 +232,14 @@ class ConvBNReLU(PortModule):
 
 
 class SEBlock(PortModule):
-    """Squeeze-excite on pooled means (two Dense layers, reduction 16)."""
+    """Squeeze-excite on pooled means (two Dense layers, ``channels`` →
+    ``channels // reduction`` → ``channels``)."""
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 reduction: int = 16):
         super().__init__()
         self.dtype = dtype
-        mid = max(channels // 16, 1)
+        mid = max(channels // reduction, 1)
         self.fc1 = nn.Linear(channels, mid)
         self.fc2 = nn.Linear(mid, channels)
 
@@ -297,8 +340,7 @@ class SegmentationHead(PortModule):
         self.conv = nn.Conv2d(cin, classes, kernel_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d(x, self.conv, self.dtype,
-                   padding=self.conv.kernel_size[0] // 2)
+        y = conv2d_same(x, self.conv, self.dtype)
         if self.upsampling > 1:
             y = upsample(y, self.upsampling)
         return y.to(wide(self.dtype))
@@ -319,10 +361,9 @@ class ClassificationHead(NoiseModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean((2, 3))
         if self.training and self.dropout > 0.0:
-            keep = 1.0 - self.dropout
             u = torch.rand(s.shape, generator=self.generator,
                            device=s.device)
-            s = torch.where(u < keep, s / keep, torch.zeros_like(s))
+            s = dropout(s, u < 1.0 - self.dropout, self.dropout)
         dt = self.dtype
         s = F.linear(s.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt))
         return s.to(wide(dt))
@@ -332,8 +373,39 @@ def upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Bilinear ×``factor`` at half-pixel centres with edge clamp, NCHW (the
     JAX package's ``jax.image.resize(..., "bilinear")`` to the multiple,
     which does not antialias when it enlarges)."""
-    return F.interpolate(x, size=(factor * x.shape[2], factor * x.shape[3]),
-                         mode="bilinear", align_corners=False)
+    return resize_to(x, (factor * x.shape[2], factor * x.shape[3]))
+
+
+# PyTorch's bilinear kernels index their output with 32-bit integers
+RESIZE_OUT_LIMIT = 2 ** 31 - 1
+
+
+def resize_to(x: torch.Tensor, hw) -> torch.Tensor:
+    """Bilinear resize to ``hw`` at half-pixel centres with edge clamp and
+    no antialias, NCHW: ``jax.image.resize(..., "bilinear")`` where it
+    enlarges (the zoo's resizes only enlarge, 1×1 included). An output of
+    ``RESIZE_OUT_LIMIT`` elements or more (UNet 3+'s 1024-channel map at
+    1024², 8 views) is resized per sample and channel block into one
+    tensor of the input's memory format."""
+    hw = tuple(hw)
+    if tuple(x.shape[2:]) == hw:
+        return x
+    n, c = x.shape[:2]
+    if n * c * hw[0] * hw[1] < RESIZE_OUT_LIMIT:
+        return F.interpolate(x, size=hw, mode="bilinear",
+                             align_corners=False, antialias=False)
+    fmt = (torch.channels_last
+           if x.is_contiguous(memory_format=torch.channels_last)
+           else torch.contiguous_format)
+    out = torch.empty((n, c) + hw, dtype=x.dtype, device=x.device,
+                      memory_format=fmt)
+    step = max(min(c, (RESIZE_OUT_LIMIT - 1) // (hw[0] * hw[1])), 1)
+    for i in range(n):
+        for j in range(0, c, step):
+            out[i:i + 1, j:j + step] = F.interpolate(
+                x[i:i + 1, j:j + step], size=hw, mode="bilinear",
+                align_corners=False, antialias=False)
+    return out
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -375,8 +447,7 @@ class CBAMSpatial(PortModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
-        a = conv2d(a, self.Conv_0, self.dtype,
-                   padding=self.Conv_0.kernel_size[0] // 2)
+        a = conv2d_same(a, self.Conv_0, self.dtype)
         return x * torch.sigmoid(a)
 
 

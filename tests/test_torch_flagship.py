@@ -158,10 +158,10 @@ def test_decoder_block_matches_jax(use_catt):
 
 def test_get_model_rejects_what_is_not_ported():
     with pytest.raises(KeyError, match="ROADMAP"):
-        tzoo.get_model("Unet3Plus_Base", {}, device="cpu")
+        tzoo.get_model("hrnet18", {}, device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
         tzoo.get_model("unetplusplusstar",
-                       {"encoder_name": "efficientnet-b2"}, device="cpu")
+                       {"encoder_name": "swin_tiny"}, device="cpu")
     with pytest.raises(ValueError, match="pallas_tail"):
         tzoo.get_model("unetplusplusstar", {**MODEL_PARAMS,
                                             "pallas_tail": "triple"},

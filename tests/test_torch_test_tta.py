@@ -222,6 +222,7 @@ PIPELINE_MODULES = ("utils.grid", "ops.tiling", "analysis.stat_result",
 # the zoo families and the ensemble
 ZOO_MODULES = ("models.unet", "models.unetplusplus", "models.classic",
                "models.attentionunet", "models.fpn", "models.deeplabv3plus",
+               "models.effnet", "models.unet3plus", "models.smp_extra",
                "infer.ensemble", "ensemble")
 
 

@@ -48,6 +48,12 @@ PORTED = ["unetplusplus_deepsup", "UnetPlusPlus", "Unet", "resnet18_unet32",
           "seresnext50_fpncat128", "resnet152_fpncat256", "FPN",
           "resnet34_deeplab128", "deeplabv3plus_deepsup",
           "seresnext101_deeplab256", "DeepLabV3Plus"]
+# the names of UNet 3+, smp_extra's families and the EfficientNet /
+# MobileNetV3 encoders (tests/test_torch_zoo_extra.py builds them)
+PORTED_EXTRA = ["Unet3Plus_Base", "Unet3Plus_DS", "Linknet", "PSPNet",
+                "DeepLabV3", "PAN", "MAnet", "b4_unet32", "b2_effunet32",
+                "b4_effunet32", "efficientnetb2_attunet",
+                "mobilenetv3_attunet", "b2_fpn_cat"]
 
 
 class JAxialPieces(nn.Module):
@@ -198,13 +204,13 @@ def test_registered_name_builds_and_forwards(name):
 
 
 def test_registry_lists_the_ported_names():
-    assert sorted(tzoo.list_models()) == sorted(PORTED + ["unetplusplusstar"])
+    assert sorted(tzoo.list_models()) == sorted(
+        PORTED + PORTED_EXTRA + ["unetplusplusstar"])
     assert set(tzoo.list_models()) <= set(jzoo.list_models())
-    for name in ("Unet3Plus_Base", "b4_unet32", "Linknet", "hrnet18",
-                 "swin_tiny_attunet"):
+    for name in ("hrnet18", "swin_tiny_attunet", "swin_small_attunet",
+                 "transunet_r50", "medt", "SegFormerStar"):
         with pytest.raises(KeyError, match="ROADMAP"):
             tzoo.get_model(name, {}, device="cpu")
-    for encoder in ("efficientnet-b2", "mobilenetv3", "densenet121",
-                    "swin_tiny"):
+    for encoder in ("swin_tiny", "swin_small", "vgg"):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_encoder(encoder)
