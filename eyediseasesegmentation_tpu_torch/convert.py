@@ -12,7 +12,8 @@ few module kinds, and one layout rule per leaf kind:
   ``weight`` / ``bias`` / ``running_mean`` / ``running_var``; the axial
   norms' ``<name>_scale`` (…) go to the same four under ``<name>``;
 * the axial projections ``to_qkv`` / ``to_kq`` / ``to_v`` and
-  ``pos_enc/relative`` keep the layout the attention op takes;
+  ``pos_enc/relative`` keep the layout the attention op takes, and so do
+  the Swin ``rel_bias`` tables and the ViT ``pos_embed``;
 * scSE's ``sse_kernel`` / ``sse_bias`` → its ``sse`` 1×1 conv.
 
 ``flax_to_torch`` takes the variables as nested dicts of arrays, as the
@@ -42,7 +43,7 @@ import torch
 RENAMED = (
     {"conv": "conv", "BatchNorm_0": "bn"},        # ConvBNReLU
     {"conv": "conv", "bn": "norm"},               # RecurrentConv
-    {"Dense_0": "fc1", "Dense_1": "fc2"},         # SEBlock
+    {"Dense_0": "fc1", "Dense_1": "fc2"},         # SEBlock, CBAMChannel
     {"Dense_0": "fc1"},                           # ClassificationHead
 )
 # SCSEAttention: the two 1×1 convs of the channel gate, beside the leaves
@@ -51,7 +52,10 @@ RENAMED = (
 # port holds directly.
 _SCSE = "SCSEAttention_0"
 _SCSE_NAMES = {"Conv_0": "cse_reduce", "Conv_1": "cse_expand"}
-_KEPT = ("to_qkv", "to_kq", "to_v", "relative")
+# leaves kept as they are (before the suffix rules: ``rel_bias`` is no
+# ``<name>_bias``): the axial projections and position tables, the Swin
+# relative-bias tables and the ViT position embeddings
+_KEPT = ("to_qkv", "to_kq", "to_v", "relative", "rel_bias", "pos_embed")
 
 
 def _children(paths) -> Dict[Tuple[str, ...], set]:

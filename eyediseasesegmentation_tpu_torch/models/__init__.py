@@ -2,11 +2,13 @@
 
 Counterpart of ``eyediseasesegmentation_tpu/models/__init__.py``: the
 flagship ``unetplusplusstar``, the families on the ResNet, EfficientNet,
-MobileNetV3 and DenseNet encoders or on no encoder (Unet, UNet++, Attention
-U-Net, FPN, DeepLabV3+, the classic U-Nets, UNet 3+, and smp's Linknet,
-PSPNet, DeepLabV3, PAN and MAnet). Other registry names raise KeyError
-(ROADMAP.md lists the rest of the zoo). ``get_model`` applies the same
-inference-time demotions as the JAX package.
+MobileNetV3, DenseNet and Swin encoders or on no encoder (Unet, UNet++,
+Attention U-Net, FPN, DeepLabV3+, the classic U-Nets, UNet 3+, smp's
+Linknet, PSPNet, DeepLabV3, PAN and MAnet), and the transformer families
+(SegFormerStar, SwinformerStar, TransUNet R50 / B16, TransUnet_V2). Other
+registry names raise KeyError (ROADMAP.md lists the rest of the zoo).
+``get_model`` applies the same inference-time demotions as the JAX
+package.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from .classic import AttUNet, ClassicUNet, R2AttUNet, R2UNet, SAUnet
 from .deeplabv3plus import DeepLabV3Plus
 from .fpn import FPN
 from .smp_extra import PAN, DeepLabV3, Linknet, MAnet, PSPNet
+from .transformers import (SegformerStar, SwinformerStar, TransUnet,
+                           TransUnetV2)
 from .unet import Unet
 from .unet3plus import UNet3Plus
 from .unetplusplus import UnetPlusPlus
@@ -76,6 +80,8 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
                                        encoder_name="efficientnet-b2"),
     "mobilenetv3_attunet": _factory(AttentionUnet,
                                     encoder_name="mobilenetv3"),
+    "swin_tiny_attunet": _factory(AttentionUnet, encoder_name="swin_tiny"),
+    "swin_small_attunet": _factory(AttentionUnet, encoder_name="swin_small"),
     "rrcnn_unet": _factory(R2UNet),
     "sa_unet": _factory(SAUnet),
     "classic_unet": _factory(ClassicUNet),
@@ -91,11 +97,16 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "deeplabv3plus_deepsup": _factory(DeepLabV3Plus),
     "seresnext101_deeplab256": _factory(DeepLabV3Plus,
                                         encoder_name="seresnext101"),
+    "transunet_r50": _factory(TransUnet, hybrid=True),
+    "transunet_b16": _factory(TransUnet, hybrid=False),
+    "TransUnet_V2": _factory(TransUnetV2),
     "Unet3Plus_Base": _factory(UNet3Plus),
     "Unet3Plus_DS": _factory(UNet3Plus, deep_supervision=True),
     "LeeJunHyun_impl_att": _factory(AttUNet),
     "LeeJunHyun_impl_R2U_Net": _factory(R2UNet),
     "LeeJunHyun_impl_R2AttU_Net": _factory(R2AttUNet),
+    "SegFormerStar": _factory(SegformerStar),
+    "SwinformerStar": _factory(SwinformerStar),
     # the smp class names the reference resolves by reflection
     "UnetPlusPlus": _factory(UnetPlusPlus),
     "FPN": _factory(FPN),
@@ -112,12 +123,14 @@ def list_models():
     return list(MODEL_REGISTRY.keys())
 
 
-def _fill(model: torch.nn.Module, who: str, bn, kernel, bias,
-          relative) -> torch.nn.Module:
+def _fill(model: torch.nn.Module, who: str, bn, kernel, bias, relative,
+          table) -> torch.nn.Module:
     """Draw every parameter and buffer of ``model`` on the CPU by kind:
-    ``bn`` (BatchNorm leaf → draw), ``kernel(fan_in)`` for conv, dense and
-    projection weights, ``bias`` and ``relative`` (position tables). Raises
-    on a leaf no kind covers."""
+    ``bn`` (BatchNorm leaf → draw; its ``weight`` and ``bias`` draws fill
+    the LayerNorm and GroupNorm affines too), ``kernel(fan_in)`` for conv,
+    dense and projection weights, ``bias``, ``relative`` (the axial position
+    tables) and ``table`` (the Swin ``rel_bias`` and ViT ``pos_embed``).
+    Raises on a leaf no kind covers."""
     from .modules.axial import RelativePosEnc2D
     from .modules.layers import BatchNorm
 
@@ -134,6 +147,11 @@ def _fill(model: torch.nn.Module, who: str, bn, kernel, bias,
                 leaves = {"weight": kernel(mod.weight[:, 0].numel())}
             elif isinstance(mod, RelativePosEnc2D):
                 leaves = {"relative": relative}
+            elif isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+                leaves = {"weight": bn["weight"], "bias": bn["bias"]}
+            for leaf in ("rel_bias", "pos_embed"):
+                if isinstance(getattr(mod, leaf, None), torch.nn.Parameter):
+                    leaves[leaf] = table
             for leaf in ("to_qkv", "to_kq", "to_v"):
                 if isinstance(getattr(mod, leaf, None), torch.nn.Parameter):
                     leaves[leaf] = kernel(getattr(mod, leaf).shape[0])
@@ -152,7 +170,9 @@ def init_random(model: torch.nn.Module,
                 generator: torch.Generator) -> torch.nn.Module:
     """Fill every parameter and buffer of ``model`` from ``generator``, at
     the scales of the flax initializers (lecun-normal weights, unit-normal
-    position tables) with BatchNorm statistics drawn away from the identity.
+    axial position tables, N(0, 0.02) Swin and ViT tables) with BatchNorm
+    statistics and the LayerNorm / GroupNorm affines drawn away from the
+    identity.
     Draws on the CPU, so a seed gives the same weights on every device."""
     def normal(std, mean=0.0):
         return lambda x: x.normal_(mean, std, generator=generator)
@@ -165,7 +185,7 @@ def init_random(model: torch.nn.Module,
                      "running_mean": normal(0.1),
                      "running_var": uniform(0.5, 1.5)},
                  kernel=lambda fan_in: normal(fan_in ** -0.5),
-                 bias=normal(0.01), relative=normal(1.0))
+                 bias=normal(0.01), relative=normal(1.0), table=normal(0.02))
 
 
 def init_flax(model: torch.nn.Module,
@@ -173,8 +193,10 @@ def init_flax(model: torch.nn.Module,
     """Initialise ``model`` as the JAX package's ``model.init`` does, by the
     flax initializers: lecun-normal (fan-in variance scaling, normal
     truncated at two standard deviations) for conv, dense and projection
-    kernels, zeros for biases, unit-normal position tables, BatchNorms at
-    the identity (scale 1, bias 0, running mean 0, variance 1). Draws on
+    kernels, zeros for biases, unit-normal axial position tables, N(0,
+    0.02) Swin ``rel_bias`` and ViT ``pos_embed``, BatchNorms, LayerNorms
+    and GroupNorms at the identity (scale 1, bias 0, running mean 0,
+    variance 1). Draws on
     the CPU from ``generator``, so a seed gives the same weights on every
     device (the streams are torch's, not JAX's)."""
     def kernel(fan_in):
@@ -187,7 +209,8 @@ def init_flax(model: torch.nn.Module,
                  bn={"weight": ones, "bias": zeros, "running_mean": zeros,
                      "running_var": ones},
                  kernel=kernel, bias=zeros,
-                 relative=lambda x: x.normal_(0.0, 1.0, generator=generator))
+                 relative=lambda x: x.normal_(0.0, 1.0, generator=generator),
+                 table=lambda x: x.normal_(0.0, 0.02, generator=generator))
 
 
 def get_model(model_name: str, params: Optional[Dict[str, Any]] = None,

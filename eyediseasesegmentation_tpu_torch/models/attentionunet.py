@@ -3,7 +3,9 @@
 Counterpart of ``eyediseasesegmentation_tpu/models/attentionunet.py``: each
 decoder step upsamples ×2, gates the skip with an additive attention gate
 driven by the upsampled map, concatenates both and runs two conv-BN-ReLU;
-with ``deep_supervision`` the inner steps get side heads.
+with ``deep_supervision`` the inner steps get side heads. ``input_size``
+is the input side a Swin encoder's windows are built for (other encoders
+ignore it).
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ class AttentionUnet(PortModule):
     def __init__(self, encoder_name: str = "resnet50",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  classes: int = 1, deep_supervision: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 input_size: int = 1024, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype, self.deep_supervision = dtype, deep_supervision
-        self.encoder, enc_channels = get_encoder(encoder_name, dtype=dtype)
+        self.encoder, enc_channels = get_encoder(
+            encoder_name, dtype=dtype, input_size=input_size)
         feats = enc_channels[1:][::-1]      # head first: c4, c3, c2, c1, c0
         self.n_steps, self.n_skips = len(decoder_channels), len(feats) - 1
         cin = feats[0]

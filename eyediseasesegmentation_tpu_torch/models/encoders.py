@@ -5,12 +5,13 @@ generic ResNet encoder (basic or bottleneck blocks, optional squeeze-excite,
 grouped 3×3 convs for the SE-ResNeXt family; ``RESNET_CONFIGS``), the
 flagship's BoTSER50, an SE-ResNet50 whose layer4 is three axial-attention
 blocks, the last two sharing weights (``BoTSER50_Imagenet``: three SE
-bottlenecks instead), and by name the EfficientNet / MobileNetV3 / DenseNet
-encoders of ``effnet.py``. Every encoder returns the 6-level pyramid
-``[x, c0(/2), c1(/4), c2(/8), c3(/16), c4(/32)]``. A ``pretrained``
-BoTSER50 (the ``_Imagenet`` configs) freezes the BatchNorms of its stem and
-layers 1-3: they normalise with their running statistics in training too
-and never update them.
+bottlenecks instead), by name the EfficientNet / MobileNetV3 / DenseNet
+encoders of ``effnet.py``, and the Swin pyramid (``swin_tiny``,
+``swin_small``) on ``transformers.SwinTransformer``. Every encoder returns
+the 6-level pyramid ``[x, c0(/2), c1(/4), c2(/8), c3(/16), c4(/32)]``. A
+``pretrained`` BoTSER50 (the ``_Imagenet`` configs) freezes the BatchNorms
+of its stem and layers 1-3: they normalise with their running statistics
+in training too and never update them.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import torch.nn.functional as F
 from .effnet import (_EFFNET_SCALE, DenseNetEncoder, EfficientNetEncoder,
                      MobileNetV3Encoder, _round_filters)
 from .modules.axial import AxialAttentionBlock
-from .modules.layers import BatchNorm, PortModule, SEBlock, conv2d
+from .modules.layers import (BatchNorm, PortModule, SEBlock, conv2d,
+                             conv2d_same)
+from .transformers import SWIN_CONFIGS, SwinTransformer
 
 
 class BasicBlock(PortModule):
@@ -204,6 +207,27 @@ class BoTSER50Encoder(PortModule):
         return feats
 
 
+class SwinPyramidEncoder(PortModule):
+    """The Swin backbone under the 6-level pyramid of the U-Net decoders:
+    a 3×3 / 2 conv stem (flax SAME, no bias) with BN and ReLU gives the /2
+    level from the input, beside the Swin stages, which give /4 to /32.
+    The Swin blocks are built for an ``input_size``² input."""
+
+    def __init__(self, variant: str = "swin_tiny", input_size: int = 1024,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.stem = nn.Conv2d(3, 64, 3, bias=False)
+        self.stem_bn = BatchNorm(64, dtype)
+        self.swin = SwinTransformer(variant, input_size=input_size,
+                                    dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        stem = conv2d_same(x, self.stem, self.dtype, 2)
+        stem = torch.relu(self.stem_bn(stem))
+        return [x, stem] + self.swin(x)
+
+
 # the BoTSER50 configs (JAX encoders.py ENCODER_CONFIGS); ``pretrained``
 # only freezes BN statistics in training, so at eval the four axial ones are
 # one network
@@ -236,9 +260,11 @@ EFFICIENTNETS = ("efficientnet-b0", "efficientnet-b2", "efficientnet-b4")
 
 
 def get_encoder(name: str, base_dim: int = 32,
-                dtype: torch.dtype = torch.float32, remat: bool = False):
+                dtype: torch.dtype = torch.float32, remat: bool = False,
+                input_size: int = 1024):
     """Build an encoder and its out_channels list by registry name.
-    ``base_dim`` sizes BoTSER50's axial tables (32 for a 1024² input)."""
+    ``base_dim`` sizes BoTSER50's axial tables (32 for a 1024² input),
+    ``input_size`` the Swin encoders' windows (the same from 224² up)."""
     if remat:
         raise NotImplementedError(
             "remat (per-block gradient checkpointing) is not ported yet; it "
@@ -261,7 +287,11 @@ def get_encoder(name: str, base_dim: int = 32,
         return MobileNetV3Encoder(dtype=dtype), [3, 16, 24, 40, 112, 160]
     if name == "densenet121":
         return DenseNetEncoder(dtype=dtype), [3, 64, 256, 512, 1024, 1024]
+    if name in SWIN_CONFIGS:
+        return (SwinPyramidEncoder(name, input_size, dtype),
+                [3, 64] + list(SWIN_CONFIGS[name]["dims"]))
     raise KeyError(f"Encoder '{name}' is not ported yet (ported: "
                    f"{list(BOTSER50_CONFIGS) + list(RESNET_CONFIGS)} + "
-                   f"{list(EFFICIENTNETS)}, mobilenetv3, densenet121); see "
-                   "ROADMAP.md for the rest of the zoo")
+                   f"{list(EFFICIENTNETS)}, mobilenetv3, densenet121, "
+                   f"{', '.join(SWIN_CONFIGS)}); see ROADMAP.md for the rest "
+                   "of the zoo")

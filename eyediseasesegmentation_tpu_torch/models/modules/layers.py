@@ -84,6 +84,35 @@ def conv2d_same(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
     return conv2d(F.pad(x, pads), conv, dtype, stride)
 
 
+def linear(x: torch.Tensor, dense: nn.Linear,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``dense`` over the last axis in ``dtype`` (flax ``nn.Dense``)."""
+    bias = None if dense.bias is None else dense.bias.to(dtype)
+    return F.linear(x.to(dtype), dense.weight.to(dtype), bias)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form (torch's default is the
+    exact erf form, about 1e-3 away)."""
+    return F.gelu(x, approximate="tanh")
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm`` over the last axis: epsilon 1e-6 (torch's
+    default is 1e-5), statistics and affine in fp32 (or wider), the output
+    in ``dtype``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__(channels, eps=1e-6)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = wide(x.dtype)
+        return F.layer_norm(x.to(w), self.normalized_shape,
+                            self.weight.to(w), self.bias.to(w),
+                            self.eps).to(self.dtype)
+
+
 def batch_moments(x: torch.Tensor, axes) -> tuple:
     """Batch mean and biased variance ``E[x²] − E[x]²`` over ``axes`` in
     fp32 (fp64 for an fp64 input), as the JAX package computes them."""
@@ -244,11 +273,8 @@ class SEBlock(PortModule):
         self.fc2 = nn.Linear(mid, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        s = x.mean((2, 3))
-        s = torch.relu(F.linear(s.to(dt), self.fc1.weight.to(dt),
-                                self.fc1.bias.to(dt)))
-        s = F.linear(s, self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+        s = torch.relu(linear(x.mean((2, 3)), self.fc1, self.dtype))
+        s = linear(s, self.fc2, self.dtype)
         return x * torch.sigmoid(s)[:, :, None, None]
 
 
@@ -449,6 +475,42 @@ class CBAMSpatial(PortModule):
         a = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
         a = conv2d_same(a, self.Conv_0, self.dtype)
         return x * torch.sigmoid(a)
+
+
+class CBAMChannel(PortModule):
+    """CBAM channel attention: one two-Dense MLP (``channels`` →
+    ``channels // reduction`` → ``channels``, ReLU between) on the spatial
+    mean and on the spatial max, and ``sigmoid(avg + max)`` as the gate.
+    Its flax children ``Dense_0`` / ``Dense_1`` are SEBlock's, so convert
+    names them ``fc1`` / ``fc2`` here too."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Linear(channels, max(channels // reduction, 1))
+        self.fc2 = nn.Linear(self.fc1.out_features, channels)
+
+    def mlp(self, s: torch.Tensor) -> torch.Tensor:
+        s = torch.relu(linear(s, self.fc1, self.dtype))
+        return linear(s, self.fc2, self.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.mlp(x.mean((2, 3))) + self.mlp(x.amax((2, 3)))
+        return x * torch.sigmoid(a)[:, :, None, None]
+
+
+class CBAM(PortModule):
+    """CBAM: the channel gate, then the spatial gate (7×7)."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.CBAMChannel_0 = CBAMChannel(channels, reduction, dtype)
+        self.CBAMSpatial_0 = CBAMSpatial(dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.CBAMSpatial_0(self.CBAMChannel_0(x))
 
 
 class AttentionGate(PortModule):

@@ -161,7 +161,7 @@ def test_get_model_rejects_what_is_not_ported():
         tzoo.get_model("hrnet18", {}, device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
         tzoo.get_model("unetplusplusstar",
-                       {"encoder_name": "swin_tiny"}, device="cpu")
+                       {"encoder_name": "vgg"}, device="cpu")
     with pytest.raises(ValueError, match="pallas_tail"):
         tzoo.get_model("unetplusplusstar", {**MODEL_PARAMS,
                                             "pallas_tail": "triple"},

@@ -48,12 +48,15 @@ PORTED = ["unetplusplus_deepsup", "UnetPlusPlus", "Unet", "resnet18_unet32",
           "seresnext50_fpncat128", "resnet152_fpncat256", "FPN",
           "resnet34_deeplab128", "deeplabv3plus_deepsup",
           "seresnext101_deeplab256", "DeepLabV3Plus"]
-# the names of UNet 3+, smp_extra's families and the EfficientNet /
-# MobileNetV3 encoders (tests/test_torch_zoo_extra.py builds them)
+# the names of UNet 3+, smp_extra's families, the EfficientNet /
+# MobileNetV3 and Swin encoders and the transformer families
+# (tests/test_torch_zoo_extra.py builds them)
 PORTED_EXTRA = ["Unet3Plus_Base", "Unet3Plus_DS", "Linknet", "PSPNet",
                 "DeepLabV3", "PAN", "MAnet", "b4_unet32", "b2_effunet32",
                 "b4_effunet32", "efficientnetb2_attunet",
-                "mobilenetv3_attunet", "b2_fpn_cat"]
+                "mobilenetv3_attunet", "b2_fpn_cat", "swin_tiny_attunet",
+                "swin_small_attunet", "transunet_r50", "transunet_b16",
+                "TransUnet_V2", "SegFormerStar", "SwinformerStar"]
 
 
 class JAxialPieces(nn.Module):
@@ -207,10 +210,10 @@ def test_registry_lists_the_ported_names():
     assert sorted(tzoo.list_models()) == sorted(
         PORTED + PORTED_EXTRA + ["unetplusplusstar"])
     assert set(tzoo.list_models()) <= set(jzoo.list_models())
-    for name in ("hrnet18", "swin_tiny_attunet", "swin_small_attunet",
-                 "transunet_r50", "medt", "SegFormerStar"):
+    for name in ("hrnet18", "resnet50_doubleunet", "hed_unet", "dcunet",
+                 "medt", "hubmap_kaggle"):
         with pytest.raises(KeyError, match="ROADMAP"):
             tzoo.get_model(name, {}, device="cpu")
-    for encoder in ("swin_tiny", "swin_small", "vgg"):
+    for encoder in ("vgg", "hrnet18"):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_encoder(encoder)

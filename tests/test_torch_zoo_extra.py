@@ -252,8 +252,10 @@ def test_resize_to_splits_an_output_past_the_index_limit(monkeypatch,
 def check_registered(name):
     """Registry ``name`` at its widths, with the inference demotions, on the
     CPU: finite fp32 logits at 64², and its weights across
-    ``torch_to_flax`` and ``load_flax`` unchanged."""
-    params = {"input_size": 64} if name == "PAN" else {}
+    ``torch_to_flax`` and ``load_flax`` unchanged. A model whose parameters
+    depend on the input size (PAN, Swin, the TransUNets) is built for 64²;
+    the others have no ``input_size`` and the registry drops it."""
+    params = {"input_size": 64}
     model = tzoo.get_model(name, params, training=False, device="cpu")
     x = torch.from_numpy(np.random.RandomState(2).uniform(
         -1, 1, (1, 3, 64, 64)).astype(np.float32))
