@@ -82,13 +82,16 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    ensemble within ``ENSEMBLE_TOL`` of the members' mean, K1 24 / K2 8
    launches (2 member forwards, all sm90), ``mean_auc`` in [0, 1], uint8
    masks in {0, 1} at full size; one bf16 d4 ``predict`` of one full-size
-   image for each of 23 zoo models at registry width (``ZOO_FULL``:
+   image for each of 33 zoo models at registry width (``ZOO_FULL``:
    the ResNet, EfficientNet and MobileNetV3 families, the classic U-Net,
    UNet 3+, smp's Linknet / PSPNet / DeepLabV3 / PAN / MAnet, the
    transformer families (the Swin-tiny and Swin-small attention U-Nets,
-   SwinformerStar, SegFormerStar, TransUNet R50 / B16, TransUnet_V2; no
-   kernel), and the models that launch kernels: the axial UNet++, K1 6 a
-   forward, and the
+   SwinformerStar, SegFormerStar, TransUNet R50 / B16, TransUnet_V2),
+   misc.py's (HRNet-48, the DoubleU-Nets on ResNet-50 and VGG, UneXt50,
+   the dense HED-UNet, DC-UNet, ResUNet++, HuBMAP, and ``gated`` / ``medt``
+   at 512², ``ZOO_SCALE``: their score tensors at 1024² do not fit), none
+   of which launches a kernel, and the models that launch kernels: the
+   axial UNet++, K1 6 a forward, and the
    flagship on ``BoTSER50_Imagenet`` under pair_up, K1 6 and K2 4 a
    forward, all sm90), images/sec and peak memory per model; and one fp32
    64² forward of every registered name (built for 64² where its
@@ -240,8 +243,17 @@ ZOO_FULL = {"resnet34_unet32": {}, "UnetPlusPlus": {
             "mobilenetv3_attunet": {}, "b2_fpn_cat": {},
             "swin_tiny_attunet": {}, "swin_small_attunet": {},
             "SwinformerStar": {}, "SegFormerStar": {}, "transunet_r50": {},
-            "transunet_b16": {}, "TransUnet_V2": {},
+            "transunet_b16": {}, "TransUnet_V2": {}, "hrnet48": {},
+            "resnet50_doubleunet": {}, "vgg_doubleunet": {},
+            "unet_resnext50_ssl": {}, "hed_denseunet": {}, "dcunet": {},
+            "resunetplusplus": {}, "hubmap_kaggle": {},
+            "gated": {"input_size": 512}, "medt": {"input_size": 512},
             "unetplusplusstar": BOTSER50_IMAGENET}
+# the MedT rows run at 512²: their axial attention holds every L×L score
+# tensor whole, as JAX's does; at 1024² the first block of ``gated`` scores
+# 8 heads × 512² over 8 views × 512 columns, 32 GiB per fp32 tensor, and
+# several are alive at once (4 GiB each at 512²)
+ZOO_SCALE = {"gated": 512, "medt": 512}
 # launches a forward: layer4 of the axial UNet++ (3 blocks, K1); the
 # BoTSER50_Imagenet flagship's gates on x_0_0, x_1_1 and x_0_1 in H and W
 # (K1) and its 4 tail nodes (K2)
@@ -1878,20 +1890,21 @@ def ensemble_pass(root, logdir, test):
 
 
 def zoo_full_width(device, image):
-    """One bf16 d4 ``predict`` of one full-size image at 1024² for each
-    model of ``ZOO_FULL`` (seeded weights), after a first call that carries
-    cuDNN's tuning. Returns the launches of each kernel in the timed
-    calls."""
+    """One bf16 d4 ``predict`` of one full-size image at 1024² (at
+    ``ZOO_SCALE`` for the MedT rows) for each model of ``ZOO_FULL`` (seeded
+    weights), after a first call that carries cuDNN's tuning. Returns the
+    launches of each kernel in the timed calls."""
     import torch
     from eyediseasesegmentation_tpu_torch import models as zoo
     from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
 
-    cfg = {"scale_size": SCALE, "dataset_name": "IDRiD"}
     totals, line = {}, []
     for i, (name, params) in enumerate(ZOO_FULL.items()):
         model = zoo.get_model(name, params, training=False,
                               dtype=torch.bfloat16, device="cpu")
         zoo.init_random(model, torch.Generator().manual_seed(SEED + 30 + i))
+        scale = ZOO_SCALE.get(name, SCALE)
+        cfg = {"scale_size": scale, "dataset_name": "IDRiD"}
         predictor = TTAPredictor(model.to(device), cfg, tta="d4",
                                  ori_hw=FULL_HW)
         t0 = time.perf_counter()
@@ -1915,7 +1928,8 @@ def zoo_full_width(device, image):
         for k, n in counts.items():
             totals[k] = totals.get(k, 0) + n
         tag = {"UnetPlusPlus": "(axial, scse)",
-               "unetplusplusstar": "(BoTSER50_Imagenet, scse, pair_up)"}
+               "unetplusplusstar": "(BoTSER50_Imagenet, scse, pair_up)",
+               **{n: f"(at {s}²)" for n, s in ZOO_SCALE.items()}}
         line.append(f"{name}{tag.get(name, '')} "
                     f"{1 / t:.4f} images/sec ({t:.4f} s, first call "
                     f"{t_first:.2f} s), peak "
@@ -1923,8 +1937,8 @@ def zoo_full_width(device, image):
         del model, predictor, probs
         torch.cuda.empty_cache()
     print(f"zoo at full width, one {FULL_HW[0]}x{FULL_HW[1]} image, d4 bf16 "
-          f"at {SCALE}²: {'; '.join(line)}; launches {totals} (sm90)",
-          flush=True)
+          f"at {SCALE}² unless named: {'; '.join(line)}; launches {totals} "
+          "(sm90)", flush=True)
     return totals
 
 
@@ -1993,7 +2007,8 @@ def zoo_card_vs_cpu(device):
         del model, card
     torch.cuda.empty_cache()
     print(f"zoo card vs CPU, fp32 at {ZOO_PARITY_SIZE}²: {len(cases)} models "
-          f"(the {len(cases) - 4} registered names, the 2 axial pieces at "
+          f"(the {len(cases) - 4} registered names but the flagship, the 2 "
+          f"axial pieces at "
           f"base_dim {ZOO_PARITY_SIZE // 32}, Unet on densenet121 and the "
           f"BoTSER50_Imagenet flagship under {TTA_MODE}, launches "
           f"{flagship} wmma), worst max|Δlogit| / max|logit| {worst:.3e} "

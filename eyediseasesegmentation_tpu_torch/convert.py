@@ -13,7 +13,10 @@ few module kinds, and one layout rule per leaf kind:
   norms' ``<name>_scale`` (…) go to the same four under ``<name>``;
 * the axial projections ``to_qkv`` / ``to_kq`` / ``to_v`` and
   ``pos_enc/relative`` keep the layout the attention op takes, and so do
-  the Swin ``rel_bias`` tables and the ViT ``pos_embed``;
+  the Swin ``rel_bias`` tables, the ViT ``pos_embed``, the gated axial
+  attention's ``relative`` table and its four 0-d gates ``gate_qr`` /
+  ``gate_kr`` / ``gate_v`` / ``gate_rv`` (MedT; there ``to_qkv`` and
+  ``to_out`` are Dense scopes, and ``qkv_bn`` a plain BatchNorm);
 * scSE's ``sse_kernel`` / ``sse_bias`` → its ``sse`` 1×1 conv.
 
 ``flax_to_torch`` takes the variables as nested dicts of arrays, as the
@@ -54,8 +57,10 @@ _SCSE = "SCSEAttention_0"
 _SCSE_NAMES = {"Conv_0": "cse_reduce", "Conv_1": "cse_expand"}
 # leaves kept as they are (before the suffix rules: ``rel_bias`` is no
 # ``<name>_bias``): the axial projections and position tables, the Swin
-# relative-bias tables and the ViT position embeddings
-_KEPT = ("to_qkv", "to_kq", "to_v", "relative", "rel_bias", "pos_embed")
+# relative-bias tables, the ViT position embeddings and the gated axial
+# attention's scalar gates
+_KEPT = ("to_qkv", "to_kq", "to_v", "relative", "rel_bias", "pos_embed",
+         "gate_qr", "gate_kr", "gate_v", "gate_rv")
 
 
 def _children(paths) -> Dict[Tuple[str, ...], set]:
@@ -90,6 +95,13 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def _contiguous(a: np.ndarray) -> np.ndarray:
+    """A C-contiguous copy of ``a`` at its own shape, 0-d included: the
+    converted weights never share memory with the model or the tree they
+    came from (a train forward moves BatchNorm statistics in place)."""
+    return np.array(a, order="C")
 
 
 def _oihw(a: np.ndarray) -> np.ndarray:
@@ -165,7 +177,7 @@ def flax_to_torch(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
             key = ".".join(parts)
             if key in out:
                 raise KeyError(f"two flax leaves map to '{key}'")
-            out[key] = torch.from_numpy(np.ascontiguousarray(a))
+            out[key] = torch.from_numpy(_contiguous(a))
     return out
 
 
@@ -254,5 +266,5 @@ def torch_to_flax(model_or_state_dict: Union[torch.nn.Module, Mapping]
         if name in node:
             raise KeyError(f"two torch keys map to flax leaf "
                            f"{collection}/{'/'.join(path)}")
-        node[name] = np.ascontiguousarray(a)
+        node[name] = _contiguous(a)
     return out

@@ -1,12 +1,13 @@
 """Model registry (torch port).
 
-Counterpart of ``eyediseasesegmentation_tpu/models/__init__.py``: the
-flagship ``unetplusplusstar``, the families on the ResNet, EfficientNet,
-MobileNetV3, DenseNet and Swin encoders or on no encoder (Unet, UNet++,
-Attention U-Net, FPN, DeepLabV3+, the classic U-Nets, UNet 3+, smp's
-Linknet, PSPNet, DeepLabV3, PAN and MAnet), and the transformer families
-(SegFormerStar, SwinformerStar, TransUNet R50 / B16, TransUnet_V2). Other
-registry names raise KeyError (ROADMAP.md lists the rest of the zoo).
+Counterpart of ``eyediseasesegmentation_tpu/models/__init__.py``, with the
+same names in the same order: the flagship ``unetplusplusstar``, the
+families on the ResNet, EfficientNet, MobileNetV3, DenseNet and Swin
+encoders or on no encoder (Unet, UNet++, Attention U-Net, FPN, DeepLabV3+,
+the classic U-Nets, UNet 3+, smp's Linknet, PSPNet, DeepLabV3, PAN and
+MAnet), the transformer families (SegFormerStar, SwinformerStar, TransUNet
+R50 / B16, TransUnet_V2) and ``misc.py``'s (the MedT axial U-Nets,
+DoubleU-Nets, HED-UNets, DC-UNet, ResUNet++, HuBMAP, HRNet, UneXt50).
 ``get_model`` applies the same inference-time demotions as the JAX
 package.
 """
@@ -23,6 +24,9 @@ from .attentionunet import AttentionUnet
 from .classic import AttUNet, ClassicUNet, R2AttUNet, R2UNet, SAUnet
 from .deeplabv3plus import DeepLabV3Plus
 from .fpn import FPN
+from .misc import (DcUnet, DoubleUnet, HEDUNet, HRNet, MedT,
+                   ResAxialAttentionUNet, ResUnetPlusPlus, UneXt50,
+                   UnetSEResNext101)
 from .smp_extra import PAN, DeepLabV3, Linknet, MAnet, PSPNet
 from .transformers import (SegformerStar, SwinformerStar, TransUnet,
                            TransUnetV2)
@@ -82,9 +86,22 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
                                     encoder_name="mobilenetv3"),
     "swin_tiny_attunet": _factory(AttentionUnet, encoder_name="swin_tiny"),
     "swin_small_attunet": _factory(AttentionUnet, encoder_name="swin_small"),
+    "hrnet18": _factory(HRNet, width=18),
+    "hrnet34": _factory(HRNet, width=34),
+    "hrnet48": _factory(HRNet, width=48),
+    "resnet50_doubleunet": _factory(DoubleUnet, encoder_name="resnet50"),
+    "efficientnetb2_doubleunet": _factory(DoubleUnet,
+                                          encoder_name="efficientnet-b2"),
+    "mobilenetv3_doubleunet": _factory(DoubleUnet,
+                                       encoder_name="mobilenetv3"),
+    "vgg_doubleunet": _factory(DoubleUnet, encoder_name="vgg"),
+    "unet_resnext50_ssl": _factory(UneXt50),
     "rrcnn_unet": _factory(R2UNet),
     "sa_unet": _factory(SAUnet),
     "classic_unet": _factory(ClassicUNet),
+    "hed_unet": _factory(HEDUNet, block="double"),
+    "hed_resunet": _factory(HEDUNet, block="res"),
+    "hed_denseunet": _factory(HEDUNet, block="dense"),
     "b2_fpn_cat": _factory(FPN, encoder_name="efficientnet-b2",
                            fpn_channels=128),
     "resnet34_fpncat128": _factory(FPN, encoder_name="resnet34",
@@ -105,6 +122,15 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "LeeJunHyun_impl_att": _factory(AttUNet),
     "LeeJunHyun_impl_R2U_Net": _factory(R2UNet),
     "LeeJunHyun_impl_R2AttU_Net": _factory(R2AttUNet),
+    "axialatt_unet": _factory(ResAxialAttentionUNet, gated=False),
+    "gated": _factory(ResAxialAttentionUNet, gated=True),
+    "medt": _factory(MedT),
+    "logo": _factory(MedT, patch_grid=2),
+    "axialattwopo_unet": _factory(ResAxialAttentionUNet, gated=False,
+                                  use_pos=False),
+    "dcunet": _factory(DcUnet),
+    "resunetplusplus": _factory(ResUnetPlusPlus),
+    "hubmap_kaggle": _factory(UnetSEResNext101),
     "SegFormerStar": _factory(SegformerStar),
     "SwinformerStar": _factory(SwinformerStar),
     # the smp class names the reference resolves by reflection
@@ -127,11 +153,12 @@ def _fill(model: torch.nn.Module, who: str, bn, kernel, bias, relative,
           table) -> torch.nn.Module:
     """Draw every parameter and buffer of ``model`` on the CPU by kind:
     ``bn`` (BatchNorm leaf → draw; its ``weight`` and ``bias`` draws fill
-    the LayerNorm and GroupNorm affines too), ``kernel(fan_in)`` for conv,
+    the LayerNorm and GroupNorm affines too, its ``weight`` draw the gated
+    axial attention's scalar gates), ``kernel(fan_in)`` for conv,
     dense and projection weights, ``bias``, ``relative`` (the axial position
     tables) and ``table`` (the Swin ``rel_bias`` and ViT ``pos_embed``).
     Raises on a leaf no kind covers."""
-    from .modules.axial import RelativePosEnc2D
+    from .misc import GATES
     from .modules.layers import BatchNorm
 
     done = set()
@@ -145,10 +172,13 @@ def _fill(model: torch.nn.Module, who: str, bn, kernel, bias, relative,
                           "bias": bias}
             elif isinstance(mod, torch.nn.ConvTranspose2d):   # (I, O, kh, kw)
                 leaves = {"weight": kernel(mod.weight[:, 0].numel())}
-            elif isinstance(mod, RelativePosEnc2D):
-                leaves = {"relative": relative}
             elif isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
                 leaves = {"weight": bn["weight"], "bias": bn["bias"]}
+            if isinstance(getattr(mod, "relative", None), torch.nn.Parameter):
+                leaves["relative"] = relative
+            for leaf in GATES:
+                if isinstance(getattr(mod, leaf, None), torch.nn.Parameter):
+                    leaves[leaf] = bn["weight"]
             for leaf in ("rel_bias", "pos_embed"):
                 if isinstance(getattr(mod, leaf, None), torch.nn.Parameter):
                     leaves[leaf] = table
@@ -171,8 +201,8 @@ def init_random(model: torch.nn.Module,
     """Fill every parameter and buffer of ``model`` from ``generator``, at
     the scales of the flax initializers (lecun-normal weights, unit-normal
     axial position tables, N(0, 0.02) Swin and ViT tables) with BatchNorm
-    statistics and the LayerNorm / GroupNorm affines drawn away from the
-    identity.
+    statistics, the LayerNorm / GroupNorm affines and the MedT gates drawn
+    away from the identity.
     Draws on the CPU, so a seed gives the same weights on every device."""
     def normal(std, mean=0.0):
         return lambda x: x.normal_(mean, std, generator=generator)
@@ -196,7 +226,7 @@ def init_flax(model: torch.nn.Module,
     kernels, zeros for biases, unit-normal axial position tables, N(0,
     0.02) Swin ``rel_bias`` and ViT ``pos_embed``, BatchNorms, LayerNorms
     and GroupNorms at the identity (scale 1, bias 0, running mean 0,
-    variance 1). Draws on
+    variance 1) and the MedT gates at 1. Draws on
     the CPU from ``generator``, so a seed gives the same weights on every
     device (the streams are torch's, not JAX's)."""
     def kernel(fan_in):
@@ -227,9 +257,8 @@ def get_model(model_name: str, params: Optional[Dict[str, Any]] = None,
     try:
         model_fn = MODEL_REGISTRY[model_name]
     except KeyError:
-        raise KeyError(
-            f"Model '{model_name}' is not ported yet (ported: {list_models()});"
-            " see ROADMAP.md for the rest of the zoo") from None
+        raise KeyError(f"Cannot find {model_name}, available options are "
+                       f"{list_models()}") from None
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

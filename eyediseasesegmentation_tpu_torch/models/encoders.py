@@ -290,8 +290,7 @@ def get_encoder(name: str, base_dim: int = 32,
     if name in SWIN_CONFIGS:
         return (SwinPyramidEncoder(name, input_size, dtype),
                 [3, 64] + list(SWIN_CONFIGS[name]["dims"]))
-    raise KeyError(f"Encoder '{name}' is not ported yet (ported: "
+    raise KeyError(f"Unknown encoder '{name}'. Options: "
                    f"{list(BOTSER50_CONFIGS) + list(RESNET_CONFIGS)} + "
                    f"{list(EFFICIENTNETS)}, mobilenetv3, densenet121, "
-                   f"{', '.join(SWIN_CONFIGS)}); see ROADMAP.md for the rest "
-                   "of the zoo")
+                   f"{', '.join(SWIN_CONFIGS)}")

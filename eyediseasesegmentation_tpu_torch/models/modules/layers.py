@@ -235,22 +235,24 @@ def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
 
 
 class ConvBNReLU(PortModule):
-    """conv ``kernel_size``² (flax SAME: asymmetric for an even kernel, no
-    bias) → DropBlock → BN → ReLU. A list input is the channel concat of its
+    """conv ``kernel_size``² at ``strides`` (flax SAME: asymmetric for an
+    even kernel and for a stride-2 conv on an even map, no bias) →
+    DropBlock → BN → ReLU. A list input is the channel concat of its
     parts."""
 
     def __init__(self, cin: int, cout: int,
                  dtype: torch.dtype = torch.float32,
-                 drop_block_prob: float = 0.1, kernel_size: int = 3):
+                 drop_block_prob: float = 0.1, kernel_size: int = 3,
+                 strides: int = 1):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.strides = dtype, strides
         self.conv = nn.Conv2d(cin, cout, kernel_size, bias=False)
         self.drop_block = DropBlock2d(drop_block_prob, block_size=7)
         self.bn = BatchNorm(cout, dtype)
 
     def forward(self, x: Parts) -> torch.Tensor:
         x = torch.cat([p.to(self.dtype) for p in output_parts(x)], 1)
-        y = conv2d_same(x, self.conv, self.dtype)
+        y = conv2d_same(x, self.conv, self.dtype, self.strides)
         return torch.relu(self.bn(self.drop_block(y)))
 
     def folded_params(self):

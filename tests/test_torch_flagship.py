@@ -157,9 +157,9 @@ def test_decoder_block_matches_jax(use_catt):
 
 
 def test_get_model_rejects_what_is_not_ported():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tzoo.get_model("hrnet18", {}, device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="Cannot find"):
+        tzoo.get_model("hrnet64", {}, device="cpu")
+    with pytest.raises(KeyError, match="Unknown encoder"):
         tzoo.get_model("unetplusplusstar",
                        {"encoder_name": "vgg"}, device="cpu")
     with pytest.raises(ValueError, match="pallas_tail"):

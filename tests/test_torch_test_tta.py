@@ -223,7 +223,8 @@ PIPELINE_MODULES = ("utils.grid", "ops.tiling", "analysis.stat_result",
 ZOO_MODULES = ("models.unet", "models.unetplusplus", "models.classic",
                "models.attentionunet", "models.fpn", "models.deeplabv3plus",
                "models.effnet", "models.unet3plus", "models.smp_extra",
-               "models.transformers", "infer.ensemble", "ensemble")
+               "models.transformers", "models.misc", "infer.ensemble",
+               "ensemble")
 
 
 def test_port_imports_without_jax_or_image_packages():

@@ -49,14 +49,20 @@ PORTED = ["unetplusplus_deepsup", "UnetPlusPlus", "Unet", "resnet18_unet32",
           "resnet34_deeplab128", "deeplabv3plus_deepsup",
           "seresnext101_deeplab256", "DeepLabV3Plus"]
 # the names of UNet 3+, smp_extra's families, the EfficientNet /
-# MobileNetV3 and Swin encoders and the transformer families
-# (tests/test_torch_zoo_extra.py builds them)
+# MobileNetV3 and Swin encoders, the transformer families and misc.py's
+# families (tests/test_torch_zoo_extra.py builds them)
 PORTED_EXTRA = ["Unet3Plus_Base", "Unet3Plus_DS", "Linknet", "PSPNet",
                 "DeepLabV3", "PAN", "MAnet", "b4_unet32", "b2_effunet32",
                 "b4_effunet32", "efficientnetb2_attunet",
                 "mobilenetv3_attunet", "b2_fpn_cat", "swin_tiny_attunet",
                 "swin_small_attunet", "transunet_r50", "transunet_b16",
-                "TransUnet_V2", "SegFormerStar", "SwinformerStar"]
+                "TransUnet_V2", "SegFormerStar", "SwinformerStar",
+                "hrnet18", "hrnet34", "hrnet48", "resnet50_doubleunet",
+                "efficientnetb2_doubleunet", "mobilenetv3_doubleunet",
+                "vgg_doubleunet", "unet_resnext50_ssl", "hed_unet",
+                "hed_resunet", "hed_denseunet", "axialatt_unet", "gated",
+                "medt", "logo", "axialattwopo_unet", "dcunet",
+                "resunetplusplus", "hubmap_kaggle"]
 
 
 class JAxialPieces(nn.Module):
@@ -207,13 +213,16 @@ def test_registered_name_builds_and_forwards(name):
 
 
 def test_registry_lists_the_ported_names():
+    """The port's registry is the JAX package's, names and order; an
+    unknown name raises KeyError in both, and so do the encoder names
+    that only a model resolves itself (``vgg``, ``hrnet18``)."""
     assert sorted(tzoo.list_models()) == sorted(
         PORTED + PORTED_EXTRA + ["unetplusplusstar"])
-    assert set(tzoo.list_models()) <= set(jzoo.list_models())
-    for name in ("hrnet18", "resnet50_doubleunet", "hed_unet", "dcunet",
-                 "medt", "hubmap_kaggle"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tzoo.get_model(name, {}, device="cpu")
+    assert tzoo.list_models() == jzoo.list_models()
+    for get in (tzoo.get_model, jzoo.get_model):
+        with pytest.raises(KeyError, match="Cannot find"):
+            get("hrnet64", {})
     for encoder in ("vgg", "hrnet18"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_encoder(encoder)
+        for get in (get_encoder, jget_encoder):
+            with pytest.raises(KeyError, match="Unknown encoder"):
+                get(encoder)

@@ -265,8 +265,8 @@ def check_registered(name):
     assert bool(torch.isfinite(out).all())
     state = {k: v.clone() for k, v in model.state_dict().items()}
     load_flax(model, torch_to_flax(state))
-    assert all(torch.equal(model.state_dict()[k], v)
-               for k, v in state.items())
+    loaded = model.state_dict()
+    assert all(torch.equal(loaded[k], v) for k, v in state.items())
 
 
 # the names on EfficientNet-b4, which no family case covers:
