@@ -98,14 +98,33 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    parameters depend on the input size; and of Unet / UNet++ on the axial
    encoder at base_dim 2, Unet on densenet121 and the BoTSER50_Imagenet
    flagship at base_dim 2, K1 6 and K2 4 on wmma) on the card against the
-   CPU within ``SLICE_TOL`` × max|logit|.
+   CPU within ``SLICE_TOL`` × max|logit|;
+10. GAN fine-tuning and the host code: ``GanTrainer.fit`` at GanConfig's
+    widths (SegFormerStar / mit_b0 generator in fp32 at 512², patches of
+    128², d_weight 0.01, rates 1e-4, batch 2) for 2 epochs on a tree the
+    port's ``make_idrid_tree`` writes (lesion SE, 4 train and 2 test
+    images), with ``best_gan.ckpt`` loaded into a fresh trainer (the same
+    probabilities), then 1 + 8 timed steps on one batch and a timed
+    ``evaluate_ap``, with the peak memory; one step of a small GAN
+    (``classic_unet`` at filters (4, 8), 32², patches of 8) on the card
+    against the CPU from the same weights (losses at 1e-5 relative, each
+    leaf's update within 1e-3 of its largest, or in fp64 where fp32 cannot
+    hold that); 8 steps of each ported optimizer past ``adamw`` / ``adam``
+    / ``sgd`` and ``radam_lookahead`` on the base_dim-2 flagship's modules
+    that span its three parameter groups, card against CPU within 1e-5 of
+    each leaf's max; the full-width flagship's parameter count and the
+    FLOPs of one 1024² view from ``utils.summary.cost_estimate`` on the
+    CPU's plain path. No kernel launches in the phase.
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 ``--routes`` runs only the bf16 route check and prints its ratios without
 holding them to a bound (how the bound's baseline was measured, on the
 previous kernels). ``--profile train`` prints the device time by op of one
-full-width train step (forward, backward and the optimizer) instead.
+full-width train step (forward, backward and the optimizer) instead. The
+profiles are taken through ``utils.profiling.trace``, the port's tracer,
+which also writes each region's Chrome trace (to a temporary directory
+here).
 Needs a CUDA device and the repository beside this file; imports no JAX.
 """
 
@@ -263,6 +282,34 @@ ZOO_KERNELS_PER_FORWARD = {
 ZOO_PARITY_SIZE = 64                # card against CPU: the axial ones and
                                     # the flagship at base_dim 2, the models
                                     # with an input_size field built for it
+# phase 10: GAN fine-tuning at GanConfig's widths (the JAX GanTrainer's
+# default generator), on a tree the port's make_idrid_tree writes
+GAN_CONFIG = {"generator": "SegFormerStar",
+              "generator_params": {"encoder_name": "mit_b0"},
+              "image_size": 512, "patch_size": 128, "d_weight": 0.01,
+              "g_learning_rate": 1e-4, "d_learning_rate": 1e-4,
+              "num_epochs": 2, "eval_every": 2, "seg_loss": "bce"}
+GAN_TRAIN, GAN_TEST, GAN_BATCH, GAN_STEPS = 4, 2, 2, 8
+GAN_RELOAD_TOL = 1e-5               # a reloaded best_gan.ckpt's probabilities
+# card against CPU: one step of a small GAN (the CPU tests' configuration)
+GAN_SMALL = {"generator": "classic_unet",
+             "generator_params": {"filters": (4, 8), "classes": 1},
+             "image_size": 32, "patch_size": 8, "d_weight": 0.01,
+             "g_learning_rate": 1e-3, "d_learning_rate": 1e-3,
+             "seg_loss": "bce"}
+GAN_LOSS_RTOL, GAN_UPDATE_TOL = 1e-5, 1e-3
+# the adversarial term is d_weight·mean(1 − D(fake)) with D(fake) near 1 on
+# raw [0, 255] patches: fp32 knows it to half an ulp of 1 times d_weight
+GAN_ADV_ATOL = GAN_SMALL["d_weight"] * 2.0 ** -22
+# the optimizers card against CPU: the seven names the CPU tests hold to
+# optax and a lookahead wrapper, on the small flagship's modules that span
+# its three groups (tests/test_torch_optim.py's REST_SLICE)
+OPT_NAMES = ("rms", "radam", "ranger", "lamb", "diffgrad", "novograd",
+             "madgrad", "radam_lookahead")
+OPT_SLICE = ("encoder.seresnet.stem_conv", "encoder.seresnet.stem_bn",
+             "encoder.seresnet.layer1_block0", "decoder.x_0_0.h_catt",
+             "decoder.x_0_4", "segmentation_head")
+OPT_STEPS, OPT_TOL, OPT_LR, OPT_WD = 8, 1e-5, 1e-2, 0.05
 
 
 class SmokeFailure(Exception):
@@ -2034,11 +2081,282 @@ def phase_ensemble_zoo(device, card, root, logdir, test):
             "seconds": seconds}
 
 
-def phase_profile_train(device):
-    """Device time by op of one full-width train step after two warm-ups."""
+def gan_datasets(root):
+    """The GAN's train and test sets: the port's ``make_idrid_tree`` (lesion
+    SE) at ``image_size``², GAN_TRAIN / GAN_TEST images."""
+    from eyediseasesegmentation_tpu_torch.data import (OneLesionSegmentation,
+                                                       get_datapath)
+    from eyediseasesegmentation_tpu_torch.data.synthetic import (
+        make_idrid_tree)
+
+    size = GAN_CONFIG["image_size"]
+    paths = make_idrid_tree(root, lesion_type="SE", n_train=GAN_TRAIN,
+                            n_test=GAN_TEST, size=(size, size), seed=SEED)
+    return [OneLesionSegmentation(*get_datapath(paths[split]["image"],
+                                                paths[split]["mask"], "SE"))
+            for split in ("train", "test")]
+
+
+def gan_full_width(device, card, root):
+    """``GanTrainer.fit`` for 2 epochs at GanConfig's widths, a fresh
+    trainer loading its ``best_gan.ckpt``, then 1 + GAN_STEPS timed steps
+    on one batch and one timed ``evaluate_ap``."""
+    import math
+
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from eyediseasesegmentation_tpu_torch.data import batch_iterator
+    from eyediseasesegmentation_tpu_torch.train.gan import GanTrainer
+
+    train_ds, test_ds = gan_datasets(root / "gan_data")
+    logdir = root / "gan"
+    trainer = GanTrainer(dict(GAN_CONFIG), logdir=logdir, seed=SEED,
+                         device=device)
+    t0 = time.perf_counter()
+    result = trainer.fit(train_ds, test_ds, batch_size=GAN_BATCH)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    rows = result["history"]
+    check(len(rows) == 2 and all(math.isfinite(r[k]) for r in rows
+                                 for k in ("d_loss", "g_loss", "seg", "adv")),
+          f"gan fit: rows {rows}")
+    check(0.0 <= result["best_ap"] <= 1.0, f"gan: best_ap {result['best_ap']}")
+    check((logdir / "best_gan.ckpt").is_file()
+          and len((logdir / "gan_metrics.jsonl").read_text().splitlines())
+          == 2, "gan fit: best_gan.ckpt / gan_metrics.jsonl")
+    batch = next(batch_iterator(train_ds, GAN_BATCH))
+    want = trainer.predict_probs(batch["image"])
+    fresh = GanTrainer(dict(GAN_CONFIG), seed=SEED + 1, device=device)
+    meta = fresh.load_checkpoint(logdir / "best_gan.ckpt")
+    reload_err = (fresh.predict_probs(batch["image"]) - want).abs().max()
+    check(float(reload_err) <= GAN_RELOAD_TOL and meta["step"] == 4,
+          f"gan reload: {meta}, max |Δprob| {float(reload_err)}")
+    del fresh
+
+    trainer.train_step(batch["image"], batch["mask"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(GAN_STEPS):
+        m = trainer.train_step(batch["image"], batch["mask"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / GAN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in m.items()}
+    check(all(math.isfinite(v) for v in losses.values()),
+          f"gan steps: losses {losses}")
+    t0 = time.perf_counter()
+    ap = trainer.evaluate_ap(test_ds, GAN_BATCH)
+    ms_ap = 1e3 * (time.perf_counter() - t0)
+    check(0.0 <= ap <= 1.0, f"gan evaluate_ap {ap}")
+    size, patch = GAN_CONFIG["image_size"], GAN_CONFIG["patch_size"]
+    shown = [{k: round(v, 6) for k, v in r.items()} for r in rows]
+    print(f"gan {GAN_CONFIG['generator']}/mit_b0 fp32 {size}² patches "
+          f"{patch}² ({(size // patch) ** 2} an image) b={GAN_BATCH}: fit 2 "
+          f"epochs ({len(train_ds) // GAN_BATCH * 2} steps + evaluate_ap) "
+          f"{t_fit:.2f} s, rows {shown}, "
+          f"best_ap {result['best_ap']:.6f}; best_gan.ckpt reloaded max "
+          f"|Δprob| {float(reload_err):.3e}; {ms:.2f} ms/step over "
+          f"{GAN_STEPS} steps after 1 warm-up, peak memory "
+          f"{peak / 2**30:.3f} GiB, losses {losses}; evaluate_ap of "
+          f"{len(test_ds)} images {ms_ap:.2f} ms (AP {ap:.6f}); {card}",
+          flush=True)
+    del trainer, result
+    torch.cuda.empty_cache()
+    return {"ms_step": ms, "peak_gib": peak / 2**30, "ms_ap": ms_ap,
+            "fit_s": t_fit}
+
+
+def gan_step_state(device, dtype, images, masks):
+    """One small GAN step on ``device`` in ``dtype`` from the seed's
+    weights: the losses and each leaf's update (new − old) on the CPU."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.train.gan import GanTrainer
+
+    trainer = GanTrainer(dict(GAN_SMALL), seed=SEED, device=device)
+    if dtype == torch.float64:
+        for model in (trainer.generator, trainer.discriminator):
+            model.double()
+            for mod in model.modules():
+                if hasattr(mod, "dtype"):
+                    mod.dtype = dtype
+        trainer.dtype = dtype
+
+    def state():       # copies: the step updates the tensors in place
+        return {**{k: v.detach().cpu().double().clone() for k, v in
+                   trainer.generator.state_dict().items()},
+                **{f"D.{k}": v.detach().cpu().double().clone() for k, v in
+                   trainer.discriminator.state_dict().items()}}
+    old = state()
+    losses = {k: float(v) for k, v in trainer.train_step(images,
+                                                         masks).items()}
+    return losses, {k: v - old[k] for k, v in state().items()}
+
+
+def gan_card_vs_cpu(device):
+    """One step of the small GAN on the card against the CPU from the same
+    weights and batch: the losses at GAN_LOSS_RTOL (adv plus its fp32
+    rounding), each leaf's update within GAN_UPDATE_TOL of the leaf's
+    largest; where fp32 cannot hold that (Adam's first step divides a
+    near-zero gradient by its own size), the same step in fp64 must."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 30)
+    size = GAN_SMALL["image_size"]
+    images = (rng.random((2, size, size, 3)) * 255).astype(np.float32)
+    masks = (rng.random((2, size, size)) < 0.2).astype(np.float32)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    runs = {(str(where), dt): gan_step_state(where, dt, images, masks)
+            for where in ("cpu", device)
+            for dt in (torch.float32, torch.float64)}
+    torch.backends.cudnn.benchmark = benchmark
+    (cpu32, card32), (cpu64, card64) = (
+        (runs[("cpu", dt)], runs[(str(device), dt)])
+        for dt in (torch.float32, torch.float64))
+    worst_loss = 0.0
+    for k, want in cpu32[0].items():
+        err = abs(card32[0][k] - want)
+        bound = GAN_LOSS_RTOL * abs(want) + (GAN_ADV_ATOL if k == "adv"
+                                             else 0.0)
+        check(err <= bound, f"gan card vs CPU: {k} {card32[0][k]} / {want}")
+        worst_loss = max(worst_loss, err / bound)
+    fp32_worst, fp64_worst, fallback = (0.0, ""), (0.0, ""), []
+    for k, want in cpu32[1].items():
+        top = max(float(want.abs().max()), 1e-30)
+        rel = float((card32[1][k] - want).abs().max()) / top
+        fp32_worst = max(fp32_worst, (rel, k))
+        w64 = cpu64[1][k]
+        rel64 = float((card64[1][k] - w64).abs().max()) / max(
+            float(w64.abs().max()), 1e-30)
+        fp64_worst = max(fp64_worst, (rel64, k))
+        if rel > GAN_UPDATE_TOL:
+            fallback.append(k)
+            check(rel64 <= GAN_UPDATE_TOL,
+                  f"gan card vs CPU: update of {k} {rel} (fp64 {rel64})")
+    print(f"gan card vs CPU, {GAN_SMALL['generator']} {size}² patches "
+          f"{GAN_SMALL['patch_size']}, one step fp32 (TF32 off): losses "
+          f"{card32[0]} / {cpu32[0]} (worst {worst_loss:.2f} of its bound); "
+          f"leaf updates worst {fp32_worst[0]:.2e} of the leaf's largest "
+          f"({fp32_worst[1]}), {len(fallback)} of {len(cpu32[1])} leaves "
+          f"over {GAN_UPDATE_TOL} held in fp64 {fallback}; fp64 step worst "
+          f"{fp64_worst[0]:.2e} ({fp64_worst[1]})", flush=True)
+
+
+def optimizers_card_vs_cpu(device):
+    """OPT_STEPS steps of each name in OPT_NAMES on the small flagship's
+    OPT_SLICE modules, on the card and on the CPU, from the same weights
+    and seeded gradients: the parameters within OPT_TOL of each leaf's
+    largest."""
+    import copy
+
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.optim import (get_optimizer,
+                                                        set_learning_rate)
+    from eyediseasesegmentation_tpu_torch.train.param_groups import (
+        param_groups)
+
+    full = zoo.get_model("unetplusplusstar", dict(MODEL_PARAMS, base_dim=2),
+                         training=True, device="cpu")
+    zoo.init_random(full, torch.Generator().manual_seed(SEED + 31))
+    root = torch.nn.Module()
+    for path in OPT_SLICE:
+        node, src = root, full
+        *parents, leaf = path.split(".")
+        for name in parents:
+            src = getattr(src, name)
+            if not hasattr(node, name):
+                node.add_module(name, torch.nn.Module())
+            node = getattr(node, name)
+        node.add_module(leaf, getattr(src, leaf))
+    gen = torch.Generator().manual_seed(SEED + 32)
+    grads = [{n: torch.randn(p.shape, generator=gen)
+              for n, p in root.named_parameters()} for _ in range(OPT_STEPS)]
+    worst = []
+    for name in OPT_NAMES:
+        params = {}
+        for where in ("cpu", device):
+            model = copy.deepcopy(root).to(where)
+            groups = param_groups(model, "unetplusplusstar", OPT_WD)
+            check(len(groups) == 3, f"optimizers: groups {len(groups)}")
+            opt = get_optimizer(name, groups, OPT_LR)
+            named = dict(model.named_parameters())
+            for i in range(OPT_STEPS):
+                if i == 3:
+                    set_learning_rate(opt, OPT_LR / 2.5)
+                for n, p in named.items():
+                    p.grad = grads[i][n].to(where)
+                opt.step()
+            params[str(where)] = {n: p.detach().cpu()
+                                  for n, p in named.items()}
+        rel = max(float((params[str(device)][n] - w).abs().max())
+                  / max(float(w.abs().max()), 1e-30)
+                  for n, w in params["cpu"].items())
+        check(rel <= OPT_TOL, f"optimizer {name} card vs CPU: {rel}")
+        worst.append(f"{name} {rel:.2e}")
+    n_params = sum(p.numel() for p in root.parameters())
+    print(f"optimizers card vs CPU, {OPT_STEPS} steps on the base_dim-2 "
+          f"flagship's {len(OPT_SLICE)} modules ({n_params} parameters, 3 "
+          f"groups), worst |Δ| / leaf max (<= {OPT_TOL}): "
+          f"{', '.join(worst)}", flush=True)
+
+
+def model_summary(card):
+    """The full-width flagship's parameter count (built on the meta
+    device) and the FLOPs of one 1024² view from ``cost_estimate`` on the
+    plain path: fp32 on the CPU, where the ctypes kernels are not in the
+    way of the counter."""
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.utils.summary import (
+        cost_estimate, get_num_parameters)
+
+    meta = zoo.get_model("unetplusplusstar", MODEL_PARAMS, training=False,
+                         device="meta")
+    trainable, total = get_num_parameters(meta)
+    model = build_model(torch.float32, "cpu")
+    x = torch.zeros(1, 3, SCALE, SCALE)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cost = cost_estimate(model, x)
+    seconds = time.perf_counter() - t0
+    check(total == sum(p.numel() for p in model.parameters())
+          and cost["flops"] > 0, f"summary: {total}, {cost}")
+    print(f"flagship summary: {total} parameters ({trainable} trainable); "
+          f"one {SCALE}² view fp32 {cost['flops'] / 1e9:.2f} GFLOP "
+          f"(FlopCounterMode, 2 a multiply-add), "
+          f"{cost['bytes_accessed'] / 2**30:.2f} "
+          f"GiB moved by the eager ops, counted on the CPU's plain path in "
+          f"{seconds:.1f} s; {card}", flush=True)
+    return {"params": total, "gflop": cost["flops"] / 1e9}
+
+
+def phase_gan(device, card, root):
+    """Phase 10: the GAN at full width, the GAN and the optimizers card
+    against the CPU, the flagship's summary. No kernel launches."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    gan = gan_full_width(device, card, root)
+    gan_card_vs_cpu(device)
+    optimizers_card_vs_cpu(device)
+    summary = model_summary(card)
+    counts = read_counts()
+    check(not any(counts.values()), f"gan phase: kernel launches {counts}")
+    seconds = time.perf_counter() - t_phase
+    print(f"gan and host phase {seconds:.1f} s, kernel launches {counts}; "
+          f"{card}", flush=True)
+    return {**gan, **summary, "seconds": seconds}
+
+
+def phase_profile_train(device, logdir):
+    """Device time by op of one full-width train step after two warm-ups
+    (``utils.profiling.trace``, which writes its Chrome trace to
+    ``logdir``)."""
+    import torch
     from eyediseasesegmentation_tpu_torch.utils import fold_in
+    from eyediseasesegmentation_tpu_torch.utils.profiling import trace
 
     trainer = full_trainer(device)
     images, masks = train_batch()
@@ -2046,8 +2364,7 @@ def phase_profile_train(device):
     for _ in range(2):
         trainer.train_step(images, masks, gen, 1e-3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(logdir) as prof:
         t0 = time.perf_counter()
         trainer.train_step(images, masks, gen, 1e-3)
         torch.cuda.synchronize()
@@ -2083,11 +2400,12 @@ def print_profile(tag, prof, wall, rows=16):
               f"{key[:90]}", flush=True)
 
 
-def phase_profile(device, modes):
+def phase_profile(device, modes, logdir):
     """Device time by op of one ``predict`` of the bench workload, after two
-    warm-ups, for each mode."""
+    warm-ups, for each mode (``utils.profiling.trace``, which writes each
+    mode's Chrome trace to ``logdir``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from eyediseasesegmentation_tpu_torch.utils.profiling import trace
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     imgs = torch.randint(0, 256, (BATCH, *FULL_HW, 3), generator=gen,
@@ -2097,8 +2415,7 @@ def phase_profile(device, modes):
         for _ in range(2):
             predictor.predict(imgs)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with trace(logdir) as prof:
             t0 = time.perf_counter()
             predictor.predict(imgs)
             torch.cuda.synchronize()
@@ -2158,11 +2475,12 @@ def main(argv=None) -> int:
             modes = args.profile.split(",")
             check(all(m in TAIL_MODES or m == "train" for m in modes),
                   f"--profile: unknown mode in {modes}")
-            if "train" in modes:
-                phase_profile_train(device)
-            modes = [m for m in modes if m != "train"]
-            if modes:
-                phase_profile(device, modes)
+            with tempfile.TemporaryDirectory() as logdir:
+                if "train" in modes:
+                    phase_profile_train(device, logdir)
+                modes = [m for m in modes if m != "train"]
+                if modes:
+                    phase_profile(device, modes, logdir)
             print(card, flush=True)
             return 0
         if args.routes:
@@ -2183,6 +2501,7 @@ def main(argv=None) -> int:
             pipe = phase_pipeline(device, card, Path(tmp), logdir)
             ens = phase_ensemble_zoo(device, card, Path(tmp), logdir,
                                      pipe["test"])
+            phase_gan(device, card, Path(tmp))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -3,8 +3,8 @@
 A copy of ``eyediseasesegmentation_tpu/config.py``: the port imports nothing
 of the JAX package, so it keeps its own. ``BaseConfig`` and ``TestConfig``
 carry the same key names, defaults and ``config.json`` shape, so a run
-directory written by either package is read by the other. ``GanConfig`` is
-not ported yet (ROADMAP.md).
+directory written by either package is read by the other; ``GanConfig``
+holds the GAN trainer's constants under the JAX package's names.
 
 Mirrors the public config surface of the reference (``src/main/config.py:16-207``):
 class attributes are the experiment spec, ``get_all_attributes()`` reflects them into
@@ -122,3 +122,19 @@ class TestConfig(BaseConfig):
     test_mask_path: str = "data/processed/IDRiD/test/label"
     out_dir: str = "outputs"
     tta: str = "d4"  # d4 | multiscale | flip | hflip | five_crop | ten_crop | none
+
+
+@dataclasses.dataclass
+class GanConfig:
+    """GAN fine-tuning constants (reference config_gan.py:8-31). The JAX
+    trainer does not read ``d_multiply``; it is kept for the key set."""
+
+    lesion_name: str = "SE"
+    image_size: int = 512
+    patch_size: int = 128
+    d_weight: float = 0.01
+    d_multiply: int = 1
+    g_learning_rate: float = 1e-4
+    d_learning_rate: float = 1e-4
+    num_epochs: int = 200
+    eval_every: int = 40

@@ -22,7 +22,11 @@ few module kinds, and one layout rule per leaf kind:
 ``flax_to_torch`` takes the variables as nested dicts of arrays, as the
 port's ``train.checkpoint.load_checkpoint`` reads them from a JAX
 checkpoint; ``torch_to_flax`` is its inverse, so a checkpoint the port
-writes with ``save_checkpoint`` loads in the JAX package.
+writes with ``save_checkpoint`` loads in the JAX package. The GAN's
+``best_gan.ckpt`` tree (``gan_to_flax`` / ``load_gan``) holds the
+generator's variables and the discriminator's parameters, whose modules
+keep the flax names (``conv0``-``conv3``, ``Dense_0``), so the same rules
+cover them.
 """
 
 from __future__ import annotations
@@ -268,3 +272,22 @@ def torch_to_flax(model_or_state_dict: Union[torch.nn.Module, Mapping]
                            f"{collection}/{'/'.join(path)}")
         node[name] = _contiguous(a)
     return out
+
+
+def gan_to_flax(generator: torch.nn.Module, discriminator: torch.nn.Module,
+                epoch: int, step: int) -> Dict[str, Any]:
+    """The JAX GAN trainer's checkpoint tree: ``{epoch, step,
+    g_state_dict, g_batch_stats, d_state_dict}`` in flax naming."""
+    g = torch_to_flax(generator)
+    return {"epoch": int(epoch), "step": int(step),
+            "g_state_dict": g["params"], "g_batch_stats": g["batch_stats"],
+            "d_state_dict": torch_to_flax(discriminator)["params"]}
+
+
+def load_gan(generator: torch.nn.Module, discriminator: torch.nn.Module,
+             tree: Mapping) -> None:
+    """Load a :func:`gan_to_flax` tree (from either package's
+    ``best_gan.ckpt``) into the generator and the discriminator."""
+    load_flax(generator, {"params": tree["g_state_dict"],
+                          "batch_stats": tree.get("g_batch_stats") or {}})
+    load_flax(discriminator, {"params": tree["d_state_dict"]})

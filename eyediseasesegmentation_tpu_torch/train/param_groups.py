@@ -36,7 +36,9 @@ def param_groups(model: torch.nn.Module, model_name: str,
                  frozen_prefixes: Sequence[str] = ()) -> List[Dict[str, Any]]:
     """The optimizer's groups: parameters of one (lr_mult, wd_mult) in one
     group, ``weight_decay`` where wd_mult > 0 and 0 where the mask zeroes
-    it, in the model's parameter order. Parameters under
+    it, in the model's parameter order; ``weight_decay_unmasked`` holds the
+    decay for the optimizers the JAX registry builds without the mask
+    (``diffgrad``, ``novograd``, ``madgrad``). Parameters under
     ``frozen_prefixes`` are left out and stop requiring grad, so neither
     they nor an optimizer state of theirs ever move."""
     scale = lr_scale_fn_for(model_name) or (lambda name: (1.0, 1.0))
@@ -48,7 +50,8 @@ def param_groups(model: torch.nn.Module, model_name: str,
         lr_mult, wd_mult = scale(name)
         g = groups.setdefault((lr_mult, wd_mult), {
             "params": [], "names": [], "lr_mult": lr_mult,
-            "weight_decay": weight_decay if wd_mult > 0 else 0.0})
+            "weight_decay": weight_decay if wd_mult > 0 else 0.0,
+            "weight_decay_unmasked": weight_decay})
         g["params"].append(p)
         g["names"].append(name)
     return list(groups.values())

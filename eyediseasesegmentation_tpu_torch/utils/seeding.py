@@ -38,3 +38,12 @@ def fold_in(generator: torch.Generator, data: int,
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
     return torch.Generator(device=device).manual_seed((z ^ (z >> 31)) & _MASK)
+
+
+def key_iter(generator: torch.Generator, device="cpu"):
+    """Infinite deterministic stream of generators: ``fold_in(generator,
+    i)`` for i = 0, 1, ... (the role of the JAX package's key stream)."""
+    i = 0
+    while True:
+        yield fold_in(generator, i, device)
+        i += 1

@@ -212,12 +212,15 @@ def test_paths_and_datasets_match_jax(run, monkeypatch):
 
 
 TRAIN_MODULES = ("ops.losses", "optim.optimizers", "optim.schedulers",
-                 "train.param_groups", "train.trainer", "utils.seeding",
-                 "utils.tb", "analysis.visualize", "data.transforms",
+                 "train.param_groups", "train.trainer", "train.gan",
+                 "utils.seeding", "utils.tb", "utils.summary",
+                 "utils.profiling", "analysis.visualize", "data.transforms",
                  "data.datasets")
-# the experiment drivers and what they call besides inference and training
+# the experiment drivers and what they call besides inference and training,
+# and the host code (synthetic data, dataset builders, offline augmentation)
 PIPELINE_MODULES = ("utils.grid", "ops.tiling", "analysis.stat_result",
                     "analysis.stat_result_vessel", "data.patches",
+                    "data.synthetic", "data.builders", "data.augment_offline",
                     "pipeline", "pipeline_vessel")
 # the zoo families and the ensemble
 ZOO_MODULES = ("models.unet", "models.unetplusplus", "models.classic",
