@@ -115,6 +115,21 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
     each leaf's max; the full-width flagship's parameter count and the
     FLOPs of one 1024² view from ``utils.summary.cost_estimate`` on the
     CPU's plain path. No kernel launches in the phase.
+11. the training options (ROADMAP item E): the elastic, grid and optical
+    distortions and ``clahe_rgb`` on a 1024² synthetic fundus, card against
+    CPU at the same draws (images within 1e-4 × 255, masks equal but at
+    pixels whose source coordinate lies within 1e-3 px of a rounding
+    boundary), with ms per call and CLAHE's peak memory; phase 7's
+    full-width train step (1 + 8 steps) under ``advanced``, ``easy``,
+    ``easy_v2`` and ``medium``, and with ``remat`` (per-block
+    checkpointing: ms/step and peak memory against the run without); one
+    fp32 train step of the flagship at 256² with and without ``remat`` on
+    the card (DropBlock on, cuDNN deterministic): loss, gradients and
+    running statistics agree; ``Trainer(encoder_weights=...)`` at full
+    width from a stand-in se_resnet50 ``.pth`` written with ``torch.save``
+    (random values under the real names), its report and the stem conv
+    equal to the file. No kernel launches in the phase; resuming from a
+    JAX ``best_full.ckpt`` is held by the CPU tests only (no flax here).
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -310,6 +325,23 @@ OPT_SLICE = ("encoder.seresnet.stem_conv", "encoder.seresnet.stem_bn",
              "encoder.seresnet.layer1_block0", "decoder.x_0_0.h_catt",
              "decoder.x_0_4", "segmentation_head")
 OPT_STEPS, OPT_TOL, OPT_LR, OPT_WD = 8, 1e-5, 1e-2, 0.05
+# phase 11: the training options of ROADMAP's item E. The distortions and
+# CLAHE on a full-size 1024² image, card against CPU at the same draws
+POLICY_IMG_TOL = 1e-4 * 255
+POLICY_EDGE = 1e-3                  # px from a nearest-rounding boundary
+POLICY_NAMES = ("advanced", "easy", "easy_v2", "medium")
+# remat card-vs-card parity: the flagship at 256² (base_dim 8), fp32,
+# batch 2, DropBlock on, cuDNN deterministic; with and without remat
+REMAT_SIZE = 256
+REMAT_LOSS_RTOL, REMAT_STAT_TOL, REMAT_GRAD_TOL = 1e-6, 1e-6, 1e-5
+# a gradient leaf within max(REMAT_GRAD_TOL · its max, floor · the largest
+# gradient): a leaf whose exact gradient vanishes by an invariance is
+# rounding noise, and the card's atomic adds make two runs without remat
+# differ by 1.3e-7 of the largest gradient in fp32 (1.3e-16 in fp64)
+REMAT_GRAD_FLOOR = {"fp32": 1e-6, "fp64": 1e-14}
+# encoder_weights: a stand-in se_resnet50 .pth (torch's names and shapes,
+# random values): layers 0-4 and last_linear
+SENET_STAGES = ((64, 3), (128, 4), (256, 6), (512, 3))
 
 
 class SmokeFailure(Exception):
@@ -2350,6 +2382,358 @@ def phase_gan(device, card, root):
     return {**gan, **summary, "seconds": seconds}
 
 
+def ramp(hw):
+    """(H, W, 2) fp32 image of each pixel's row and column: a bilinear warp
+    of it returns the source coordinates it sampled at."""
+    import torch
+    gy, gx = torch.meshgrid(torch.arange(hw[0], dtype=torch.float32),
+                            torch.arange(hw[1], dtype=torch.float32),
+                            indexing="ij")
+    return torch.stack([gy, gx], -1)
+
+
+def policy_ops(device, card):
+    """The distortions and CLAHE at 1024², card against CPU at the same
+    draws (the CPU's fields copied to the card): images within
+    ``POLICY_IMG_TOL``, masks equal but where the CPU's source coordinate
+    lies within ``POLICY_EDGE`` of a rounding boundary (counted); ms per
+    call on the card and CLAHE's peak memory."""
+    import numpy as np
+    import torch
+    from eyediseasesegmentation_tpu_torch.ops import image as I
+
+    img8, mask = synthetic_fundus(np.random.default_rng(SEED + 40),
+                                  (SCALE, SCALE))
+    img_cpu = torch.from_numpy(img8.astype(np.float32))
+    mask_cpu = torch.from_numpy(mask)
+    gen = torch.Generator().manual_seed(SEED + 41)
+    fields = I.draw_elastic(gen, SCALE, SCALE)
+    draws = {"elastic": (I.apply_elastic, fields, {"sigma": 6.0}),
+             "grid": (I.apply_grid_distortion,
+                      I.draw_grid_distortion(gen), {}),
+             "optical": (I.apply_optical_distortion,
+                         I.draw_optical_distortion(gen, SCALE, SCALE), {})}
+    img, m = img_cpu.to(device), mask_cpu.to(device)
+    out = {}
+    for name, (fn, args, kw) in draws.items():
+        on = [a.to(device) if isinstance(a, torch.Tensor) else a
+              for a in args]
+        want_img, want_mask = fn(img_cpu, mask_cpu, *args, **kw)
+        got_img, got_mask = fn(img, m, *on, **kw)
+        err = float((got_img.cpu() - want_img).abs().max())
+        check(err <= POLICY_IMG_TOL, f"{name}: image max err {err}")
+        bad = got_mask.cpu() != want_mask
+        if bool(bad.any()):
+            coords = fn(ramp((SCALE, SCALE)), None, *args, **kw)
+            frac = coords - torch.floor(coords)
+            near = ((frac - 0.5).abs() < POLICY_EDGE).any(-1)
+            check(not bool((bad & ~near).any()),
+                  f"{name}: {int((bad & ~near).sum())} mask pixels differ "
+                  "away from a rounding boundary")
+        ms = time_ms(lambda: fn(img, m, *on, **kw), reps=10)
+        out[name] = {"max_abs_err": err, "mask_boundary_pixels": int(
+            bad.sum()), "ms": ms}
+    want = I.clahe_rgb(img_cpu)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = I.clahe_rgb(img)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    err = float((got.cpu() - want).abs().max())
+    check(err <= POLICY_IMG_TOL, f"clahe_rgb: image max err {err}")
+    out["clahe_rgb"] = {"max_abs_err": err,
+                        "ms": time_ms(lambda: I.clahe_rgb(img), reps=10),
+                        "peak_mib": peak / 2 ** 20}
+    for name, r in out.items():
+        print(f"policy op {name} {SCALE}²: card vs CPU max|Δ| "
+              f"{r['max_abs_err']:.3e} (bound {POLICY_IMG_TOL:.4f})"
+              + (f", mask pixels at a rounding boundary "
+                 f"{r['mask_boundary_pixels']}" if "mask_boundary_pixels"
+                 in r else f", peak {r['peak_mib']:.1f} MiB above the "
+                 "input") + f"; {r['ms']:.3f} ms a call; {card}", flush=True)
+    return out
+
+
+def timed_steps(trainer, tag, card):
+    """1 + ``TRAIN_STEPS`` train steps of phase 7's batch: (ms a step,
+    peak GiB), with no kernel launch."""
+    import math
+
+    import torch
+    from eyediseasesegmentation_tpu_torch.utils import fold_in
+
+    images, masks = train_batch()
+    epoch_gen = fold_in(torch.Generator().manual_seed(SEED), 1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = float(trainer.train_step(images, masks, epoch_gen, 1e-3)["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        m = trainer.train_step(images, masks, epoch_gen, 1e-3)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = read_counts()
+    last = float(m["loss"])
+    check(math.isfinite(first) and math.isfinite(last),
+          f"{tag}: losses {first}, {last}")
+    check(not any(counts.values()), f"{tag}: kernel launches {counts}")
+    print(f"train step {tag} {SCALE}² b=2 bf16 AdamW: {ms:.2f} ms/step over "
+          f"{TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up; peak memory "
+          f"{peak:.3f} GiB; loss first {first:.6f} last {last:.6f}; kernel "
+          f"launches {counts}; {card}", flush=True)
+    return ms, peak
+
+
+def remat_switches(model):
+    """The modules of ``model`` that hold a ``remat`` switch (the flagship's
+    encoders and decoder)."""
+    return [m for m in model.modules()
+            if isinstance(getattr(m, "remat", None), bool)]
+
+
+def policies_and_remat_steps(device, card):
+    """Phase 7's full-width train step on a trainer built with ``remat``
+    (the trainer's own seed-1999 initialisation): its switches off under
+    each policy (the transform swapped), then on (per-block
+    checkpointing) under ``advanced``."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.data import get_transform
+    from eyediseasesegmentation_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.benchmark = True
+    trainer = Trainer(dict(TRAIN_CONFIG, remat=True), device=device)
+    switches = remat_switches(trainer.model)
+    check(trainer._model_remat and len(switches) >= 3,
+          "remat: the flagship took the whole-model fallback")
+    prep = trainer.transform.preprocessing_fn
+    out = {}
+    for mod in switches:
+        mod.remat = False
+    for name in POLICY_NAMES:
+        trainer.transform = get_transform(name)(image_size=SCALE,
+                                                preprocessing_fn=prep)
+        out[name] = timed_steps(trainer, f"augmentation={name}", card)
+    for mod in switches:
+        mod.remat = True
+    out["remat"] = timed_steps(trainer, "remat advanced", card)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_card_parity(device):
+    """One train step of the flagship at ``REMAT_SIZE``² with and without
+    ``remat`` on the card, on one model (the ``remat`` switches of its
+    encoder and decoder flipped; the same weights, optimizer state, batch
+    and generators for every run; DropBlock on; cuDNN deterministic): fp32
+    without, with, and without again, whose spread is the card's own
+    run-to-run noise (atomic adds in some backwards), and the same pair in
+    fp64. Holds the loss, every gradient leaf and every running statistic
+    with remat to the run without; no kernel launch."""
+    import numpy as np
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.train.trainer import Trainer
+    from eyediseasesegmentation_tpu_torch.utils import fold_in
+
+    cfg = dict(TRAIN_CONFIG, is_fp16=False, scale_size=REMAT_SIZE,
+               remat=True, model_params=dict(
+                   TRAIN_CONFIG["model_params"], base_dim=REMAT_SIZE // 32,
+                   drop_block_prob=0.3))
+    rng = np.random.default_rng(SEED + 50)
+    images = rng.integers(0, 256, (2, REMAT_SIZE, REMAT_SIZE, 3),
+                          dtype=np.uint8)
+    masks = (rng.random((2, REMAT_SIZE, REMAT_SIZE)) < 0.1).astype(np.uint8)
+    tr = Trainer(cfg, device=device)
+    zoo.init_random(tr.model, torch.Generator().manual_seed(SEED))
+    switches = remat_switches(tr.model)
+    check(len(switches) >= 3 and all(m.remat for m in switches),
+          "remat parity: the flagship built without its remat switches")
+    start = {k: v.clone() for k, v in tr.model.state_dict().items()}
+
+    def run(on, dtype):
+        tr.model.to(dtype)
+        for mod in tr.model.modules():
+            if hasattr(mod, "dtype"):
+                mod.dtype = dtype
+        tr.model.load_state_dict(start)
+        tr.optimizer.state.clear()
+        tr.step = 0
+        for mod in switches:
+            mod.remat = on
+        m = tr.train_step(images, masks,
+                          fold_in(torch.Generator().manual_seed(SEED), 1000),
+                          1e-3)
+        return (float(m["loss"]),
+                {k: p.grad.detach().double().cpu()
+                 for k, p in tr.model.named_parameters()},
+                {k: b.detach().double().cpu()
+                 for k, b in tr.model.named_buffers()
+                 if b.is_floating_point()})
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_counts()
+        runs = {"fp32": [run(on, torch.float32) for on in (False, True,
+                                                             False)],
+                "fp64": [run(on, torch.float64) for on in (False, True)]}
+        counts = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = bench
+    del tr
+    torch.cuda.empty_cache()
+    check(not any(counts.values()), f"remat parity: launches {counts}")
+
+    def gap(a, b):
+        """(loss rel, worst gradient leaf / its max, worst gradient leaf /
+        the largest gradient, worst running statistic / its max)."""
+        scale = max(float(g.abs().max()) for g in a[1].values())
+        leaf = max(float((b[1][k] - g).abs().max())
+                   / max(float(g.abs().max()), 1e-300)
+                   for k, g in a[1].items())
+        glob = max(float((b[1][k] - g).abs().max()) / scale
+                   for k, g in a[1].items())
+        stat = max(float((b[2][k] - v).abs().max())
+                   / max(float(v.abs().max()), 1e-300)
+                   for k, v in a[2].items())
+        return abs(b[0] - a[0]) / abs(a[0]), leaf, glob, stat
+
+    out = {"fp32 remat": gap(runs["fp32"][0], runs["fp32"][1]),
+           "fp32 spread": gap(runs["fp32"][0], runs["fp32"][2]),
+           "fp64 remat": gap(runs["fp64"][0], runs["fp64"][1])}
+    for tag, (loss, leaf, glob, stat) in out.items():
+        print(f"remat parity {REMAT_SIZE}² b=2 drop_block 0.3 {tag}: loss "
+              f"rel {loss:.3e}, worst gradient leaf {leaf:.3e} of its max "
+              f"({glob:.3e} of the largest gradient), worst running "
+              f"statistic {stat:.3e}", flush=True)
+    for dt in ("fp32", "fp64"):
+        without, with_ = runs[dt][0], runs[dt][1]
+        loss, _, _, stat = out[f"{dt} remat"]
+        check(loss <= REMAT_LOSS_RTOL, f"remat parity {dt}: loss {loss}")
+        check(stat <= REMAT_STAT_TOL,
+              f"remat parity {dt}: running statistics {stat}")
+        hold_grads(f"remat parity {dt}", with_[1], without[1],
+                   REMAT_GRAD_TOL, REMAT_GRAD_FLOOR[dt])
+    return out
+
+
+def senet_state_dict(gen):
+    """se_resnet50's state_dict names and shapes (pretrainedmodels'
+    ``senet``: layer0 stem, four stages of SE bottlenecks, last_linear),
+    filled with random values from ``gen``."""
+    import torch
+
+    def conv(o, i, k):
+        return torch.randn((o, i, k, k), generator=gen) * (i * k * k) ** -0.5
+
+    sd = {"layer0.conv1.weight": conv(64, 3, 7)}
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{name}.running_var"] = 1.0 + torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    bn("layer0.bn1", 64)
+    cin = 64
+    for s, (width, blocks) in enumerate(SENET_STAGES, 1):
+        for b in range(blocks):
+            p, out = f"layer{s}.{b}", 4 * width
+            for i, (o, ci, k) in enumerate(((width, cin, 1),
+                                            (width, width, 3),
+                                            (out, width, 1)), 1):
+                sd[f"{p}.conv{i}.weight"] = conv(o, ci, k)
+                bn(f"{p}.bn{i}", o)
+            sd[f"{p}.se_module.fc1.weight"] = conv(out // 16, out, 1)
+            sd[f"{p}.se_module.fc1.bias"] = torch.zeros(out // 16)
+            sd[f"{p}.se_module.fc2.weight"] = conv(out, out // 16, 1)
+            sd[f"{p}.se_module.fc2.bias"] = torch.zeros(out)
+            if b == 0:
+                sd[f"{p}.downsample.0.weight"] = conv(out, cin, 1)
+                bn(f"{p}.downsample.1", out)
+            cin = out
+    sd["last_linear.weight"] = torch.randn((1000, 2048), generator=gen)
+    sd["last_linear.bias"] = torch.zeros(1000)
+    return sd
+
+
+def encoder_weights_full_width(device, root, card):
+    """``Trainer(encoder_weights=...)`` at full width on the card from a
+    stand-in se_resnet50 ``.pth`` written here: the key-diff report, and
+    the stem conv equal to the file's tensor bit for bit."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.train.trainer import Trainer
+
+    sd = senet_state_dict(torch.Generator().manual_seed(SEED + 60))
+    path = Path(root) / "se_resnet50.pth"
+    torch.save(sd, path)
+    t0 = time.perf_counter()
+    trainer = Trainer(dict(TRAIN_CONFIG, encoder_weights=str(path)),
+                      device=device)
+    seconds = time.perf_counter() - t0
+    rep = trainer.encoder_report
+    n = {k: len(rep[k]) for k in ("loaded", "missing_in_jax",
+                                  "shape_mismatch", "unused_torch")}
+    stem = trainer.model.encoder.seresnet.stem_conv.weight
+    check(stem.device.type == torch.device(device).type and torch.equal(
+        stem.detach().cpu(), sd["layer0.conv1.weight"]),
+        "encoder_weights: stem_conv differs from the file's tensor")
+    check(n["loaded"] > 0 and n["missing_in_jax"] == 0
+          and n["shape_mismatch"] == 0,
+          f"encoder_weights: report {n}")
+    print(f"encoder_weights se_resnet50 -> {TRAIN_CONFIG['model_name']} at "
+          f"base_dim {SCALE // 32} on the card: loaded {n['loaded']}, "
+          f"missing {n['missing_in_jax']}, mismatched "
+          f"{n['shape_mismatch']}, unused {n['unused_torch']} (layer4 and "
+          f"last_linear); stem_conv equal to the file; Trainer built in "
+          f"{seconds:.2f} s; {card}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_train_options(device, card, root):
+    """Phase 11: the transform policies' ops and train steps, ``remat``,
+    ``encoder_weights``. Resuming from a JAX ``best_full.ckpt`` is held by
+    the CPU tests only: this machine has no flax and the script imports no
+    JAX package, so it cannot write one."""
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return r
+
+    ops = timed("ops", policy_ops, device, card)
+    steps = timed("steps", policies_and_remat_steps, device, card)
+    parity = timed("remat parity", remat_card_parity, device)
+    report = timed("encoder_weights", encoder_weights_full_width, device,
+                   root, card)
+    (ms0, peak0), (ms1, peak1) = steps["advanced"], steps["remat"]
+    check(peak1 < peak0, f"remat: peak {peak1:.3f} GiB not under "
+          f"{peak0:.3f} GiB")
+    seconds = time.perf_counter() - t_phase
+    print(f"train options: ms/step " + ", ".join(
+        f"{k} {v[0]:.2f}" for k, v in steps.items()) + f"; remat peak "
+        f"{peak1:.3f} GiB against {peak0:.3f} GiB without ({ms1:.2f} "
+        f"against {ms0:.2f} ms/step); JAX best_full.ckpt resume: CPU tests "
+        f"only (no flax here); phase {seconds:.1f} s (" + ", ".join(
+            f"{k} {v:.1f}" for k, v in parts.items()) + f"); {card}",
+        flush=True)
+    return {"ops": ops, "steps": steps, "remat_parity": parity,
+            "encoder_weights": report, "seconds": seconds}
+
+
 def phase_profile_train(device, logdir):
     """Device time by op of one full-width train step after two warm-ups
     (``utils.profiling.trace``, which writes its Chrome trace to
@@ -2502,6 +2886,7 @@ def main(argv=None) -> int:
             ens = phase_ensemble_zoo(device, card, Path(tmp), logdir,
                                      pipe["test"])
             phase_gan(device, card, Path(tmp))
+            phase_train_options(device, card, Path(tmp))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -14,9 +14,8 @@ device) and a generator on the images' device for noise fields. The draw
 order of a policy is fixed: one gate (and pick) per member, in the order
 the JAX policy lists them, then the member's own draws when it is taken.
 
-``none``, ``normal``, ``advanced`` and ``advanced_vessel`` are ported;
-``easy``, ``easy_v2`` and ``medium`` need the elastic / grid / optical
-distortions and CLAHE, which are not ported yet (ROADMAP.md).
+All seven JAX policies are here: ``none``, ``normal``, ``easy``,
+``easy_v2``, ``medium``, ``advanced`` and ``advanced_vessel``.
 """
 
 from __future__ import annotations
@@ -99,7 +98,34 @@ def _random_scale(rng, img, mask):
     return I.apply_random_scale(img, mask, I.draw_random_scale(rng.host))
 
 
+def _elastic(rng, img, mask):
+    fy, fx = I.draw_elastic(rng.device, img.shape[0], img.shape[1],
+                            img.device)
+    return I.apply_elastic(img, mask, fy, fx, alpha=120.0, sigma=120 * 0.05)
+
+
+def _grid_distortion(rng, img, mask):
+    return I.apply_grid_distortion(img, mask,
+                                   *I.draw_grid_distortion(rng.host))
+
+
+def _optical_distortion(rng, img, mask):
+    params = I.draw_optical_distortion(rng.host, img.shape[0], img.shape[1],
+                                       distort_limit=2.0, shift_limit=0.5)
+    return I.apply_optical_distortion(img, mask, *params)
+
+
+def _clahe(rng, img, mask):
+    return I.clahe_rgb(img), mask
+
+
+def _brightness_contrast(rng, img, mask):
+    img, mask = _brightness(rng, img, mask)
+    return _contrast(rng, img, mask)
+
+
 PHOTOMETRIC = (_contrast, _gamma, _brightness)
+DISTORTIONS = (_elastic, _grid_distortion, _optical_distortion)
 
 
 class BaseTransform:
@@ -159,6 +185,49 @@ class NormalTransform(BaseTransform):
         return img, mask
 
 
+class EasyTransform(BaseTransform):
+    """vflip .5, rot90 .5, OneOf(elastic, grid, optical) .5, CLAHE .5,
+    brightness then contrast .5, gamma .5 (data_transform.py:77-94)."""
+
+    def hard(self, rng, img, mask):
+        img, mask = _maybe(rng, 0.5, _vflip, img, mask)
+        img, mask = _maybe(rng, 0.5, _rot90, img, mask)
+        img, mask = _one_of(rng, DISTORTIONS, img, mask, p=0.5)
+        img, mask = _maybe(rng, 0.5, _clahe, img, mask)
+        img, mask = _maybe(rng, 0.5, _brightness_contrast, img, mask)
+        img, mask = _maybe(rng, 0.5, _gamma, img, mask)
+        return img, mask
+
+
+class EasyTransformV2(BaseTransform):
+    """vflip, hflip, rot90 .5 each, OneOf(elastic, grid, optical) .5,
+    ShiftScaleRotate .5 (data_transform.py:96-112)."""
+
+    def hard(self, rng, img, mask):
+        img, mask = _maybe(rng, 0.5, _vflip, img, mask)
+        img, mask = _maybe(rng, 0.5, _hflip, img, mask)
+        img, mask = _maybe(rng, 0.5, _rot90, img, mask)
+        img, mask = _one_of(rng, DISTORTIONS, img, mask, p=0.5)
+        img, mask = _maybe(rng, 0.5, _shift_scale_rotate, img, mask)
+        return img, mask
+
+
+class MediumTransform(BaseTransform):
+    """vflip .5, hflip .5, rot90 .7, OneOf(elastic, grid, optical) .5,
+    CLAHE .5, brightness then contrast .5, gamma .5
+    (data_transform.py:114-132)."""
+
+    def hard(self, rng, img, mask):
+        img, mask = _maybe(rng, 0.5, _vflip, img, mask)
+        img, mask = _maybe(rng, 0.5, _hflip, img, mask)
+        img, mask = _maybe(rng, 0.7, _rot90, img, mask)
+        img, mask = _one_of(rng, DISTORTIONS, img, mask, p=0.5)
+        img, mask = _maybe(rng, 0.5, _clahe, img, mask)
+        img, mask = _maybe(rng, 0.5, _brightness_contrast, img, mask)
+        img, mask = _maybe(rng, 0.5, _gamma, img, mask)
+        return img, mask
+
+
 class AdvancedTransform(BaseTransform):
     """hflip .5, vflip .5, rot90 .7, OneOf(contrast, gamma, brightness) .5,
     ShiftScaleRotate .5, GaussNoise .5 (the reference's distortion OneOf
@@ -183,21 +252,12 @@ class AdvancedTransformVessel(AdvancedTransform):
         return super().hard(rng, img, mask)
 
 
-def _not_ported(name: str, needs: str):
-    def make(*args, **kwargs):
-        raise NotImplementedError(
-            f"augmentation '{name}' needs {needs}, which the port does not "
-            "have yet (ROADMAP.md, queue 1 item E: the remaining transform "
-            "policies)")
-    return make
-
-
 TRANSFORM_REGISTRY = {
     "none": NoOpTransform,
     "normal": NormalTransform,
-    "easy": _not_ported("easy", "the distortion ops and CLAHE"),
-    "easy_v2": _not_ported("easy_v2", "the distortion ops"),
-    "medium": _not_ported("medium", "the distortion ops and CLAHE"),
+    "easy": EasyTransform,
+    "easy_v2": EasyTransformV2,
+    "medium": MediumTransform,
     "advanced": AdvancedTransform,
     "advanced_vessel": AdvancedTransformVessel,
 }

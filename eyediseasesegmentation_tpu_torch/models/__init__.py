@@ -56,12 +56,18 @@ def _factory(cls, **fixed) -> Callable[..., Any]:
         # the logical path (tests/test_packed_tail.py; pallas_tail and
         # fast_min_res ARE fields: they select the fused decode-node
         # kernels; drop_block_prob and remat are fields too), so a
-        # config.json round-trips
+        # config.json round-trips; a true remat on a model without the
+        # field raises TypeError
         kwargs = {}
         for k, v in params.items():
             k2 = _ALIASES.get(k, k)
             if k2 in fields:
                 kwargs[k2] = v
+        if params.get("remat") and "remat" not in fields:
+            # a model without its own per-block remat refuses it, as a flax
+            # constructor refuses an unknown field (the trainer then
+            # checkpoints the whole model)
+            raise TypeError(f"{cls.__name__} has no field 'remat'")
         return cls(**kwargs)
 
     return make

@@ -35,7 +35,7 @@ from .modules.axial import (CrossAxialAttention, columns, columns_to_rows,
 from ..ops.decode_pair import scse_conv3x3_pair
 from ..ops.scse_conv import scse_conv3x3_bn_relu
 from .modules.layers import (Attention, BatchNorm, ConvBNReLU, PortModule,
-                             Parts, conv2d, output_parts, upsample2x,
+                             Parts, conv2d, output_parts, remat, upsample2x,
                              upsample2x_w)
 
 PALLAS_TAIL_MODES = (None, False, True, "v1", "pair", "pair_up")
@@ -197,17 +197,20 @@ class UnetPlusPlusDecoder(PortModule):
     """Nested UNet++ dense-grid decoder. ``star``: the skips of the nodes
     with layer index 0 or 1 (x_0_0, x_1_1, x_0_1) are gated by cross-axial
     attention (the flagship's variant). Returns the final map, or
-    (final, [x_3_3, x_2_3, x_1_3]) with ``deep_supervision``."""
+    (final, [x_3_3, x_2_3, x_1_3]) with ``deep_supervision``. ``remat``:
+    in training each node, the final block included, is recomputed in the
+    backward (``layers.remat``); a training node never takes a kernel
+    route, recomputed or not."""
 
     def __init__(self, encoder_channels: Sequence[int],
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
                  base_dim: int = 32, attention_type: Optional[str] = None,
                  deep_supervision: bool = False, star: bool = False,
                  pallas_tail: Any = False, fast_min_res: int = 512,
-                 drop_block_prob: float = 0.1,
+                 drop_block_prob: float = 0.1, remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.deep_supervision = deep_supervision
+        self.deep_supervision, self.remat = deep_supervision, remat
         self.pallas_tail = check_pallas_tail(pallas_tail)
         self.fast_min_res = fast_min_res
         enc = list(encoder_channels[1:])[::-1]  # head first
@@ -294,21 +297,22 @@ class UnetPlusPlusDecoder(PortModule):
         routed = (set() if self.training else
                   set(self.kernel_nodes([tuple(f.shape[2:]) for f in feats])))
         dense: Dict[str, torch.Tensor] = {}
+
+        def node(name, x, skip):
+            return remat(getattr(self, name), x, skip, name in routed,
+                         enabled=self.remat)
+
         for d in range(depth):
             name = f"x_{d}_{d}"
-            dense[name] = getattr(self, name)(
-                feats[d], feats[d + 1], kernel_route=name in routed)
+            dense[name] = node(name, feats[d], feats[d + 1])
         for layer_idx in range(1, depth):
             for depth_idx in range(depth - layer_idx):
                 li = depth_idx + layer_idx
                 name = f"x_{depth_idx}_{li}"
                 cat = ([dense[f"x_{i}_{li}"] for i in range(depth_idx + 1, li + 1)]
                        + [feats[li + 1]])
-                dense[name] = getattr(self, name)(
-                    dense[f"x_{depth_idx}_{li - 1}"], cat,
-                    kernel_route=name in routed)
-        final = getattr(self, f"x_0_{depth}")(dense[f"x_0_{depth - 1}"],
-                                              kernel_route=False)
+                dense[name] = node(name, dense[f"x_{depth_idx}_{li - 1}"], cat)
+        final = node(f"x_0_{depth}", dense[f"x_0_{depth - 1}"], None)
         if self.deep_supervision:
             return final, [dense["x_3_3"], dense["x_2_3"], dense["x_1_3"]]
         return final

@@ -26,7 +26,7 @@ from .effnet import (_EFFNET_SCALE, DenseNetEncoder, EfficientNetEncoder,
                      MobileNetV3Encoder, _round_filters)
 from .modules.axial import AxialAttentionBlock
 from .modules.layers import (BatchNorm, PortModule, SEBlock, conv2d,
-                             conv2d_same)
+                             conv2d_same, remat)
 from .transformers import SWIN_CONFIGS, SwinTransformer
 
 
@@ -110,17 +110,18 @@ class ResNetEncoder(PortModule):
     BN, ReLU (the /2 feature), then a 3×3/2 max-pool with pad 1, then
     ``num_stages`` stages of ``block`` ('basic' or 'bottleneck'). A
     bottleneck's inner width is ``width_factor`` × the stage's planes (2.0
-    with ``groups`` 32: the ResNeXt-32x4d family)."""
+    with ``groups`` 32: the ResNeXt-32x4d family). ``remat``: each block is
+    recomputed in the backward in training (``layers.remat``)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  block: str = "bottleneck", use_se: bool = False,
                  groups: int = 1, num_stages: int = 4,
                  frozen_bn: bool = False, width_factor: float = 1.0,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if block not in ("basic", "bottleneck"):
             raise ValueError(f"Unknown ResNet block {block!r}")
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         exp = Bottleneck.expansion if block == "bottleneck" else 1
         self.out_channels = [3, 64] + [64 * (2 ** i) * exp
                                        for i in range(num_stages)]
@@ -156,7 +157,7 @@ class ResNetEncoder(PortModule):
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         for names in self.block_names:
             for name in names:
-                y = getattr(self, name)(y)
+                y = remat(getattr(self, name), y, enabled=self.remat)
             feats.append(y)
         return feats
 
@@ -169,17 +170,21 @@ class BoTSER50Encoder(PortModule):
     three SE bottlenecks ``layer4_block{0,1,2}`` (512 inner, 2048 out, the
     first with stride 2), which JAX substitutes for the reference's dead
     branch. ``pretrained`` freezes the BatchNorms of the stem and layers 1-3
-    (never layer4's)."""
+    (never layer4's). ``remat``: each SE bottleneck of layers 1-3 and each
+    axial block call (the shared block's two calls apart) is recomputed in
+    the backward in training; the bottlenecks of the ``use_axial=False``
+    layer4 are not, as in JAX."""
 
     out_channels: Tuple[int, ...] = (3, 64, 256, 512, 1024, 2048)
 
     def __init__(self, base_dim: int = 32, pretrained: bool = False,
-                 use_axial: bool = True, dtype: torch.dtype = torch.float32):
+                 use_axial: bool = True, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.use_axial = use_axial
+        self.use_axial, self.remat = use_axial, remat
         self.seresnet = ResNetEncoder(stage_sizes=(3, 4, 6, 3), use_se=True,
                                       num_stages=3, frozen_bn=pretrained,
-                                      dtype=dtype)
+                                      remat=remat, dtype=dtype)
         if use_axial:
             self.layer4_first = AxialAttentionBlock(
                 1024, 2048, down_sample=True, dim=base_dim * 2, heads=8,
@@ -197,9 +202,9 @@ class BoTSER50Encoder(PortModule):
         feats = self.seresnet(x)
         y = feats[-1]
         if self.use_axial:
-            y = self.layer4_first(y)
-            y = self.layer4_shared(y)
-            y = self.layer4_shared(y)
+            y = remat(self.layer4_first, y, enabled=self.remat)
+            y = remat(self.layer4_shared, y, enabled=self.remat)
+            y = remat(self.layer4_shared, y, enabled=self.remat)
         else:
             for i in range(3):
                 y = getattr(self, f"layer4_block{i}")(y)
@@ -264,18 +269,15 @@ def get_encoder(name: str, base_dim: int = 32,
                 input_size: int = 1024):
     """Build an encoder and its out_channels list by registry name.
     ``base_dim`` sizes BoTSER50's axial tables (32 for a 1024² input),
-    ``input_size`` the Swin encoders' windows (the same from 224² up)."""
-    if remat:
-        raise NotImplementedError(
-            "remat (per-block gradient checkpointing) is not ported yet; it "
-            "comes with ROADMAP.md queue 1 item E (torch.utils.checkpoint "
-            "per block)")
+    ``input_size`` the Swin encoders' windows (the same from 224² up).
+    ``remat`` reaches the BoTSER50 and ResNet encoders' blocks; the others
+    have no such field in JAX and train as they are."""
     if name in BOTSER50_CONFIGS:
-        enc = BoTSER50Encoder(base_dim=base_dim, dtype=dtype,
+        enc = BoTSER50Encoder(base_dim=base_dim, dtype=dtype, remat=remat,
                               **BOTSER50_CONFIGS[name])
         return enc, list(enc.out_channels)
     if name in RESNET_CONFIGS:
-        enc = ResNetEncoder(dtype=dtype, **RESNET_CONFIGS[name])
+        enc = ResNetEncoder(dtype=dtype, remat=remat, **RESNET_CONFIGS[name])
         return enc, list(enc.out_channels)
     if name in EFFICIENTNETS:
         variant = name.split("-")[1]

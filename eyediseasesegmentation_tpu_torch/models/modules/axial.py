@@ -24,7 +24,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import axial_attention as AK
-from .layers import BatchNorm, PortModule, batch_moments, conv2d, wide
+from .layers import (BatchNorm, PortModule, batch_moments, conv2d,
+                     recomputing, wide)
 
 
 class RelativePosEnc2D(PortModule):
@@ -57,16 +58,18 @@ class RelativePosEnc2D(PortModule):
 def norm_train(norm: BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """An attention's inline norm in training: fp32 statistics over every
     axis but the last, normalised with the biased variance; the running
-    variance moves by the unbiased one (momentum 0.9 in flax's sense).
-    Returns the input's dtype."""
+    variance moves by the unbiased one (momentum 0.9 in flax's sense),
+    except while a ``remat`` block is recomputed. Returns the input's
+    dtype."""
     axes = tuple(range(x.ndim - 1))
     xf, mean, var = batch_moments(x, axes)
     n = x.numel() // x.shape[-1]
-    with torch.no_grad():
-        m = norm.momentum
-        norm.running_mean.copy_(m * norm.running_mean + (1 - m) * mean)
-        norm.running_var.copy_(m * norm.running_var
-                               + (1 - m) * var * (n / max(n - 1, 1)))
+    if not recomputing():
+        with torch.no_grad():
+            m = norm.momentum
+            norm.running_mean.copy_(m * norm.running_mean + (1 - m) * mean)
+            norm.running_var.copy_(m * norm.running_var
+                                   + (1 - m) * var * (n / max(n - 1, 1)))
     y = (xf - mean) * torch.rsqrt(var + 1e-5) * norm.weight + norm.bias
     return y.to(x.dtype)
 

@@ -15,11 +15,14 @@ package (``packed > 1``) are exact rewrites with no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Parts = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -49,6 +52,56 @@ def set_generator(model: nn.Module,
     for mod in model.modules():
         if isinstance(mod, NoiseModule):
             mod.generator = generator
+
+
+class _RematState(threading.local):
+    recomputing = False
+
+
+_REMAT = _RematState()
+
+
+def recomputing() -> bool:
+    """Whether a :func:`remat` block is being recomputed for the backward
+    (in the thread that runs it): the norms then compute their batch
+    statistics again but leave their running statistics alone, as flax's
+    ``nn.remat`` moves them once."""
+    return _REMAT.recomputing
+
+
+def remat(block: nn.Module, *args, enabled: bool = True):
+    """``block(*args)``, its activations recomputed in the backward instead
+    of kept (``torch.utils.checkpoint``, non-reentrant) when ``enabled``,
+    ``block`` is in train mode and a gradient is being recorded; else a
+    plain call. Two traps are guarded. The recompute runs under
+    :func:`recomputing`, so BatchNorm's running statistics move once. The
+    explicit generators of the block's noise modules (``set_generator``;
+    ``checkpoint`` replays only the default generators) are put back to
+    their state at the forward for the recompute, so DropBlock and dropout
+    draw the same masks, and then left where the backward found them."""
+    if not (enabled and block.training and torch.is_grad_enabled()):
+        return block(*args)
+    gens = list({id(m.generator): m.generator for m in block.modules()
+                 if isinstance(m, NoiseModule)
+                 and m.generator is not None}.values())
+    at_forward = [g.get_state() for g in gens]
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in gens]
+        for g, st in zip(gens, at_forward):
+            g.set_state(st)
+        outer, _REMAT.recomputing = _REMAT.recomputing, True
+        try:
+            yield
+        finally:
+            _REMAT.recomputing = outer
+            for g, st in zip(gens, now):
+                g.set_state(st)
+
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recompute()))
 
 
 def wide(dtype: torch.dtype) -> torch.dtype:
@@ -129,8 +182,9 @@ class BatchNorm(PortModule):
     in the compute dtype. Train: batch mean and **biased** variance in fp32
     over (N, H, W); the running stats move by ``ra = 0.9·ra + 0.1·batch``
     (flax ``momentum=0.9``), the variance biased too, unlike
-    ``nn.BatchNorm2d``, which stores the unbiased one. The output is cast to
-    the compute dtype."""
+    ``nn.BatchNorm2d``, which stores the unbiased one; not while a
+    :func:`remat` block is recomputed. The output is cast to the compute
+    dtype."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  frozen: bool = False, momentum: float = 0.9):
@@ -154,10 +208,12 @@ class BatchNorm(PortModule):
             return y.to(self.dtype)
         axes = (0,) + tuple(range(2, x.ndim))
         xf, mean, var = batch_moments(x, axes)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if not recomputing():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         y = ((xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + 1e-5)
              * self.weight.view(shape) + self.bias.view(shape))
         return y.to(self.dtype)

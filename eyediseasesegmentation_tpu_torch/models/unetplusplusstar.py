@@ -24,7 +24,9 @@ class UnetPlusPlusStar(PortModule):
     ≥ ``fast_min_res`` through the fused decode-node kernels
     (``models/decoders.py``) in eval. In training (``.train()``) the
     decoder's ConvBNReLUs apply DropBlock at ``drop_block_prob`` and the
-    classification head dropout 0.1; ``remat`` is not ported and raises."""
+    classification head dropout 0.1; with ``remat`` each encoder block
+    (SE bottleneck, axial block call) and each decoder node is recomputed
+    in the backward instead of kept (``layers.remat``)."""
 
     def __init__(self, encoder_name: str = "BoTSER50_Axial_Imagenet_3",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16),
@@ -48,7 +50,7 @@ class UnetPlusPlusStar(PortModule):
             deep_supervision=deep_supervision, star=True,
             pallas_tail=pallas_tail,
             fast_min_res=fast_min_res, drop_block_prob=drop_block_prob,
-            dtype=dtype)
+            remat=remat, dtype=dtype)
         self.segmentation_head = SegmentationHead(
             decoder_channels[-1], classes, dtype=dtype)
         if deep_supervision:

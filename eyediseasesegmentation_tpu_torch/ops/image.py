@@ -2,7 +2,8 @@
 
 Counterpart of ``eyediseasesegmentation_tpu/ops/image.py``: resize / pad /
 crop, normalization, the D4 view family, and the augmentation ops of the
-``normal``, ``advanced`` and ``advanced_vessel`` policies. Images are
+policies (the distortions and CLAHE of ``easy``, ``easy_v2`` and
+``medium`` too) and Ben Graham's colour stage. Images are
 (..., H, W, C), so a batch (N, H, W, C) goes through in one call where the
 JAX package vmaps; a map without channels gets a trailing axis of 1.
 
@@ -17,7 +18,7 @@ key draws to the ``apply_*`` functions.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +104,45 @@ def normalize(img: torch.Tensor, mean, std) -> torch.Tensor:
     mean = torch.as_tensor(mean, dtype=torch.float32, device=img.device)
     std = torch.as_tensor(std, dtype=torch.float32, device=img.device)
     return (img / 255.0 - mean) / std
+
+
+def gaussian_kernel_1d(sigma: float, radius: int, device=None) -> torch.Tensor:
+    """The normalised fp32 Gaussian taps at -radius..radius."""
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float,
+                  radius: Optional[int] = None) -> torch.Tensor:
+    """Separable Gaussian blur of an (..., H, W, C) image: radius
+    ``round(4σ)`` (at least 1) cut to ``min(·, H − 1, W − 1)``, a reflect-101
+    border (cv2's default), then the depthwise taps along H, then along W."""
+    if radius is None:
+        radius = max(1, int(round(4.0 * sigma)))
+    h, w, c = img.shape[_H], img.shape[_W], img.shape[-1]
+    radius = min(radius, h - 1, w - 1)      # a reflect pad must be < size
+    k = gaussian_kernel_1d(sigma, radius, img.device).to(img.dtype)
+    x = img.reshape((-1, h, w, c)).permute(0, 3, 1, 2)
+    x = F.pad(x, (radius, radius, radius, radius), mode="reflect")
+    x = F.conv2d(x, k.view(1, 1, -1, 1).expand(c, 1, -1, 1), groups=c)
+    x = F.conv2d(x, k.view(1, 1, 1, -1).expand(c, 1, 1, -1), groups=c)
+    return x.permute(0, 2, 3, 1).reshape(img.shape)
+
+
+def ben_color_device(img: torch.Tensor, sigma: float = 10.0) -> torch.Tensor:
+    """Ben Graham's colour enhancement, the addWeighted stage only
+    (data_transform.py:199-203): 4·img − 4·blur(img) + 128, clipped to
+    [0, 255]. The gray crop before it is host work (a shape that depends
+    on the data)."""
+    out = 4.0 * img - 4.0 * gaussian_blur(img, sigma) + 128.0
+    return torch.clamp(out, 0.0, 255.0)
+
+
+def binarize_mask(mask: torch.Tensor, thresh: float = 50.0) -> torch.Tensor:
+    """Mask binarisation ``point(x > 50 → 255)`` as {0, 1} fp32
+    (lesion_dataset.py:54-58)."""
+    return (mask > thresh).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -300,3 +340,193 @@ def apply_random_scale(img, mask, scale: float):
     if mask is None:
         return out
     return out, warp_bilinear(mask, sy, sx, order=0)
+
+
+def _grid(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.arange(h, **f32)[:, None].expand(h, w),
+            torch.arange(w, **f32)[None, :].expand(h, w))
+
+
+def _warp_pair(img, mask, sy, sx):
+    out = warp_bilinear(img, sy, sx)
+    if mask is None:
+        return out
+    return out, warp_bilinear(mask, sy, sx, order=0)
+
+
+def draw_elastic(noise_gen: Optional[torch.Generator], h: int, w: int,
+                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two U(−1, 1) displacement fields (H, W, 1) of the elastic
+    transform, drawn on ``device`` from ``noise_gen``."""
+    def field():
+        u = torch.rand((h, w, 1), generator=noise_gen, device=device)
+        return u * 2.0 - 1.0
+    return field(), field()
+
+
+def apply_elastic(img, mask, field_y: torch.Tensor, field_x: torch.Tensor,
+                  alpha: float = 120.0, sigma: float = 6.0):
+    """Elastic deformation (Simard et al.): each field blurred by σ and
+    scaled by α/σ is the displacement of the sampling grid; the image
+    bilinear, the mask (if any) nearest."""
+    h, w = img.shape[0], img.shape[1]
+    dy = gaussian_blur(field_y, sigma)[..., 0] * alpha / sigma
+    dx = gaussian_blur(field_x, sigma)[..., 0] * alpha / sigma
+    gy, gx = _grid(h, w, img.device)
+    return _warp_pair(img, mask, gy + dy, gx + dx)
+
+
+def draw_grid_distortion(gen, num_steps: int = 5, distort_limit: float = 0.3
+                         ) -> Tuple[List[float], List[float]]:
+    """The per-cell step scales 1 + U(±limit) of GridDistortion: first the
+    ``num_steps + 1`` along H, then along W, each in fp32."""
+    def axis():
+        return [float(np.float32(1.0) + np.float32(
+            uniform(gen, -distort_limit, distort_limit)))
+            for _ in range(num_steps + 1)]
+    return axis(), axis()
+
+
+def _linspace(stop: float, n: int, device) -> torch.Tensor:
+    """``jnp.linspace(0, stop, n)`` in fp32: node i is stop·(i / (n − 1)),
+    the last node ``stop`` itself (XLA rounds some nodes up to two ulps
+    apart)."""
+    t = torch.arange(n - 1, dtype=torch.float32, device=device) / (n - 1)
+    return torch.cat([stop * t, torch.full((1,), stop, dtype=torch.float32,
+                                           device=device)])
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor
+           ) -> torch.Tensor:
+    """``jnp.interp``: piecewise-linear through (xp, fp), xp increasing,
+    the end values outside."""
+    i = torch.searchsorted(xp, x, right=True).clamp(1, xp.numel() - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    tiny = float(np.spacing(np.finfo(np.float32).eps))
+    flat = dx.abs() <= tiny
+    f = torch.where(flat, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(flat, torch.ones_like(dx),
+                                                     dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _grid_axis_map(steps: Sequence[float], size: int, device) -> torch.Tensor:
+    """One axis of GridDistortion: the nodes moved by the scaled cells and
+    renormalised to the full extent, inverted by ``interp``."""
+    n = len(steps) - 1
+    scaled = torch.tensor(steps, dtype=torch.float32, device=device) * (size // n)
+    pos = torch.cat([torch.zeros(1, device=device), torch.cumsum(scaled, 0)])
+    pos = pos / pos[-1] * (size - 1)
+    src = _linspace(float(size - 1), n + 2, device)
+    return interp(torch.arange(size, dtype=torch.float32, device=device),
+                  pos, src)
+
+
+def apply_grid_distortion(img, mask, steps_y: Sequence[float],
+                          steps_x: Sequence[float]):
+    """albumentations GridDistortion with the drawn step scales, by the
+    inverse map per axis; the image bilinear, the mask (if any) nearest.
+    The two axis maps (H + W values) are computed on the CPU, so every
+    device samples at the same coordinates (a device's cumsum over the
+    nodes may round them apart)."""
+    h, w = img.shape[0], img.shape[1]
+    my = _grid_axis_map(steps_y, h, "cpu").to(img.device)
+    mx = _grid_axis_map(steps_x, w, "cpu").to(img.device)
+    return _warp_pair(img, mask, my[:, None].expand(h, w),
+                      mx[None, :].expand(h, w))
+
+
+def draw_optical_distortion(gen, h: int, w: int, distort_limit: float = 2.0,
+                            shift_limit: float = 0.5
+                            ) -> Tuple[float, float, float]:
+    """(k, dy, dx) of OpticalDistortion: the barrel / pincushion strength
+    U(±distort_limit) and the centre's shift U(±shift_limit)·size·0.1 in
+    pixels, each in fp32 in the JAX op's order of operations."""
+    f32 = np.float32
+    k = f32(uniform(gen, -distort_limit, distort_limit))
+    dy = f32(f32(uniform(gen, -shift_limit, shift_limit)) * f32(h)) * f32(0.1)
+    dx = f32(f32(uniform(gen, -shift_limit, shift_limit)) * f32(w)) * f32(0.1)
+    return float(k), float(dy), float(dx)
+
+
+def apply_optical_distortion(img, mask, k: float, dy: float, dx: float):
+    """albumentations OpticalDistortion as the JAX op approximates it:
+    radius² r² of the centred, unit-normalised grid, the scale
+    1 / (1 + k·r²·0.25), then the shift; the image bilinear, the mask (if
+    any) nearest."""
+    h, w = img.shape[0], img.shape[1]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    gy, gx = _grid(h, w, img.device)
+    # divisors as device tensors: a CPU scalar divisor becomes a multiply
+    # by its reciprocal on a GPU, an ulp away from the CPU's division
+    f32 = dict(dtype=torch.float32, device=img.device)
+    ny = (gy - cy) / torch.tensor(cy, **f32)
+    nx = (gx - cx) / torch.tensor(cx, **f32)
+    r2 = ny * ny + nx * nx
+    kt = torch.tensor(k, **f32)
+    factor = 1.0 / (1.0 + kt * r2 * 0.25)
+    sy = ny * factor * cy + cy + torch.tensor(dy, **f32)
+    sx = nx * factor * cx + cx + torch.tensor(dx, **f32)
+    return _warp_pair(img, mask, sy, sx)
+
+
+# ---------------------------------------------------------------------------
+# CLAHE (EasyTransform / MediumTransform): tile histograms, the clipped CDF,
+# each pixel's value through the four nearest tiles' maps, blended bilinearly
+# ---------------------------------------------------------------------------
+
+def clahe(img: torch.Tensor, clip_limit: float = 4.0,
+          grid: Tuple[int, int] = (8, 8), nbins: int = 256) -> torch.Tensor:
+    """Contrast-limited adaptive histogram equalisation of an (H, W) image
+    in [0, 255]. Each tile's histogram counts its truncated values with one
+    ``bincount`` over (tile, bin), O(H·W) (the JAX op sums a one-hot of
+    (tiles, pixels, bins), the same fp32 counts); bins over
+    ``clip_limit``·pixels/bins are clipped and the excess spread evenly."""
+    h, w = img.shape
+    gh, gw = grid
+    th, tw = h // gh, w // gw
+    dev = img.device
+    vals = torch.clamp(img[:gh * th, :gw * tw], 0, 255).to(torch.int64)
+    tile = ((torch.arange(gh * th, device=dev) // th)[:, None] * gw
+            + (torch.arange(gw * tw, device=dev) // tw)[None, :])
+    hist = torch.bincount((tile * nbins + vals).reshape(-1),
+                          minlength=gh * gw * nbins)
+    hist = hist.to(torch.float32).view(gh * gw, nbins)
+    limit = max(clip_limit * th * tw / nbins, 1.0)
+    excess = torch.clamp(hist - limit, min=0.0).sum(1, keepdim=True)
+    hist = torch.clamp(hist, max=limit) + excess / nbins
+    cdf = torch.cumsum(hist, 1)
+    cdf = ((cdf - cdf[:, :1]) / torch.clamp(cdf[:, -1:] - cdf[:, :1],
+                                            min=1e-6) * (nbins - 1))
+    cdf = cdf.reshape(-1)
+
+    gy, gx = _grid(h, w, dev)
+    ty = torch.clamp((gy + 0.5) / th - 0.5, 0.0, gh - 1.0)
+    tx = torch.clamp((gx + 0.5) / tw - 0.5, 0.0, gw - 1.0)
+    y0, x0 = torch.floor(ty), torch.floor(tx)
+    fy, fx = ty - y0, tx - x0
+    y0, x0 = y0.to(torch.int64), x0.to(torch.int64)
+    y1, x1 = torch.clamp(y0 + 1, max=gh - 1), torch.clamp(x0 + 1, max=gw - 1)
+    v = torch.clamp(img, 0, 255).to(torch.int64)
+
+    def lookup(iy, ix):
+        return cdf[(iy * gw + ix) * nbins + v]
+
+    return (lookup(y0, x0) * (1 - fy) * (1 - fx)
+            + lookup(y0, x1) * (1 - fy) * fx
+            + lookup(y1, x0) * fy * (1 - fx) + lookup(y1, x1) * fy * fx)
+
+
+def clahe_rgb(img: torch.Tensor, clip_limit: float = 4.0,
+              grid: Tuple[int, int] = (8, 8)) -> torch.Tensor:
+    """CLAHE of the luma, the colour kept by each pixel's ratio
+    equalised / luma (the JAX package's stand-in for preprocess_gan.py's LAB
+    round trip)."""
+    lum = rgb_to_gray(img, keep_channels=False)
+    eq = clahe(lum, clip_limit, grid)
+    ratio = eq / torch.clamp(lum, min=1.0)
+    return _clip(img * ratio[..., None])

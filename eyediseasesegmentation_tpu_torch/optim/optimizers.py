@@ -23,7 +23,9 @@ The learning rate is set per step with :func:`set_learning_rate`, the role
 of ``optax.inject_hyperparams``. Every counter of :class:`OptaxOptimizer`
 (the step, which also drives the lookahead sync and MADGRAD's λ) is a 0-d
 CPU tensor in each parameter's state, as torch keeps its own ``step``, so
-``train.checkpoint.resume_state`` / ``restore_into`` resume a run exactly.
+``train.checkpoint.resume_state`` / ``restore_into`` resume a run exactly;
+``OPTAX_FIELDS`` / :func:`state_fields` name the optax state each state key
+comes from, so ``restore_into`` also resumes from a JAX ``best_full.ckpt``.
 """
 
 from __future__ import annotations
@@ -222,6 +224,36 @@ BUFFERS = {"sgd": ("momentum_buffer",), "rms": ("square_avg",),
            "lamb": ("exp_avg", "exp_avg_sq"), "novograd": ("exp_avg",),
            "diffgrad": ("exp_avg", "exp_avg_sq", "prev_grad"),
            "madgrad": ("grad_sum", "grad_sum_sq")}
+
+
+# optax's state fields (the NamedTuple field names a JAX checkpoint keeps)
+# → the port's per-parameter state keys, by base name
+OPTAX_FIELDS = {
+    "sgd": {"trace": "momentum_buffer"},
+    "rms": {"nu": "square_avg"},
+    "novograd": {"mu": "exp_avg", "nu": "nu"},
+    "madgrad": {"grad_sum": "grad_sum", "grad_sum_sq": "grad_sum_sq",
+                "x0": "x0"},
+    "diffgrad": {"mu": "exp_avg", "nu": "exp_avg_sq",
+                 "prev_grad": "prev_grad"},
+}
+for _name in ("adam", "adamw", "radam", "ranger", "lamb"):
+    OPTAX_FIELDS[_name] = {"mu": "exp_avg", "nu": "exp_avg_sq"}
+
+
+def state_fields(optimizer: torch.optim.Optimizer) -> Tuple[Dict[str, str],
+                                                            bool]:
+    """(optax field → state key, whether each parameter's state has a
+    ``step`` counter) of an optimizer of this registry; the lookahead's
+    ``slow`` weights included where it has them."""
+    if isinstance(optimizer, OptaxOptimizer):
+        fields = dict(OPTAX_FIELDS[optimizer.name])
+        if optimizer.inner_lookahead or optimizer.outer_lookahead:
+            fields["slow"] = "slow"
+        return fields, True
+    if isinstance(optimizer, torch.optim.SGD):
+        return dict(OPTAX_FIELDS["sgd"]), False
+    return dict(OPTAX_FIELDS["adam"]), True       # torch's Adam / AdamW
 
 
 class OptaxOptimizer(torch.optim.Optimizer):

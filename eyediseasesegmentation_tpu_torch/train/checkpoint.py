@@ -24,8 +24,14 @@ numpy has no such type without ``ml_dtypes``, so their bytes are read as
 (``convert.torch_to_flax``), so the JAX package reads a run the port
 trained. ``best_full.ckpt`` holds the port's own resume state
 (:func:`resume_state`): the model's ``state_dict``, the optimizer state by
-parameter name, the step and the epoch; :func:`restore_into` reads it back.
-A JAX ``best_full.ckpt`` (optax state trees) is not read (ROADMAP.md).
+parameter name, the step and the epoch. :func:`restore_into` reads it
+back, and reads the JAX package's ``best_full.ckpt`` too, ``{"state":
+TrainState(params, batch_stats, opt_state, step), "epoch"}``: the weights
+through ``convert``, and each optax state tree shaped like the parameters
+(found by its field name, ``mu``, ``nu``, ``trace``, ``slow``, ...) onto the
+port's per-parameter state (``optim.optimizers.state_fields``), with
+``inject_hyperparams``' count as every 0-d ``step`` counter and its
+learning rate as the base rate.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..convert import _leaves
 
 # flax.serialization.MAX_CHUNK_SIZE: an array leaf of more bytes is chunked
 MAX_CHUNK_SIZE = 2 ** 30
@@ -397,12 +405,93 @@ def resume_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             "optimizer": opt, "step": int(step), "epoch": int(epoch)}
 
 
+def _param_shaped(opt_state: Any, leaves: set) -> dict:
+    """Every subtree of an optax state whose leaf paths are the parameters'
+    (the per-parameter trees: moments, traces, slow weights; a 0-d leaf per
+    parameter for novograd's second moment), by its field name; raises
+    when a field name is found twice."""
+    found: dict = {}
+
+    def walk(node, name):
+        if not isinstance(node, dict) or not node:
+            return
+        if {p for p, _ in _leaves(node)} == leaves:
+            if name in found:
+                raise ValueError(f"optax state: two '{name}' trees")
+            found[name] = node
+            return
+        for k, v in node.items():
+            walk(v, k)
+
+    walk(opt_state, None)
+    return found
+
+
+def _restore_jax(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 tree: dict) -> dict:
+    from ..convert import flax_to_torch, load_flax
+    from ..optim.optimizers import set_learning_rate, state_fields
+
+    state = tree["state"]
+    params = state["params"]
+    load_flax(model, {"params": params,
+                      "batch_stats": state.get("batch_stats") or {}})
+    shapes = {k: np.shape(v) for k, v in _leaves(params)}
+    trees = _param_shaped(state["opt_state"], set(shapes))
+    fields, has_step = state_fields(optimizer)
+    named = {}
+    for field, key in fields.items():
+        if field not in trees:
+            raise KeyError(f"JAX optimizer state has no '{field}' tree for "
+                           f"the port's '{key}'")
+        sub = {p: np.asarray(v) for p, v in _leaves(trees[field])}
+        scalar = all(v.ndim == 0 for v in sub.values())
+        full = {p: np.full(shapes[p], v) if scalar else v
+                for p, v in sub.items()}
+        nested: dict = {}
+        for p, v in full.items():
+            node = nested
+            for part in p[:-1]:
+                node = node.setdefault(part, {})
+            node[p[-1]] = v
+        conv = flax_to_torch({"params": nested})
+        named[key] = {n: t.reshape(-1)[0] if scalar else t
+                      for n, t in conv.items()}
+    opt = state["opt_state"]
+    count = float(np.asarray(opt["count"]))
+    mine = {id(p) for g in optimizer.param_groups for p in g["params"]}
+    for name, p in model.named_parameters():
+        if id(p) not in mine:
+            continue
+        entry = {}
+        for key, by_name in named.items():
+            if name not in by_name:
+                raise KeyError(f"JAX optimizer state '{key}' has no entry "
+                               f"for parameter '{name}'")
+            t = by_name[name]
+            entry[key] = (t.clone() if t.ndim == 0
+                          else t.to(p.device, p.dtype))
+        if has_step:
+            entry["step"] = torch.tensor(count)
+        optimizer.state[p] = entry
+    if "learning_rate" in (opt.get("hyperparams") or {}):
+        set_learning_rate(optimizer,
+                          float(np.asarray(opt["hyperparams"]
+                                           ["learning_rate"])))
+    return {"step": int(np.asarray(state["step"])),
+            "epoch": int(np.asarray(tree["epoch"]))}
+
+
 def restore_into(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  path: Union[str, Path]) -> dict:
-    """Load a :func:`resume_state` checkpoint into ``model`` and
+    """Load a :func:`resume_state` checkpoint, or a JAX ``best_full.ckpt``
+    (told apart by its top-level ``state`` key), into ``model`` and
     ``optimizer`` (on their devices); returns ``{"step", "epoch"}``.
-    Raises when a model key or an optimizer entry has no counterpart."""
+    Raises when a model key or an optimizer entry has no counterpart,
+    naming the first one missing."""
     tree = load_checkpoint(path)
+    if "state" in tree and "model_state_dict" not in tree:
+        return _restore_jax(model, optimizer, tree)
     state = {k: torch.as_tensor(np.asarray(v))
              for k, v in tree["model_state_dict"].items()}
     model.load_state_dict(state)

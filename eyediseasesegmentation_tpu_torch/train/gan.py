@@ -21,12 +21,16 @@ no CUDA kernel of the port (they have no backward). Both optimizers are the
 registry's ``adam`` with the JAX defaults: weight decay 1e-5 coupled into
 every parameter's gradient (no mask, no lr groups) and eps 1e-5.
 
-Unlike the JAX trainer, which draws new weights in every ``fit``, the
-weights are drawn once, from ``seed``, when the trainer is built (the flax
-initializers, ``models.init_flax``), and ``fit`` trains from the current
-state; :meth:`GanTrainer.load_checkpoint` loads a ``best_gan.ckpt`` of
-either package. Data parallelism (``mesh_shape`` with ``data > 1``) is not
-ported (ROADMAP.md queue 1 item D5).
+As in the JAX trainer, every ``fit`` starts from the beginning: it draws
+G and D again from ``seed`` (the flax initializers, ``models.init_flax``,
+on the same ``fold_in`` streams), resets both Adam states and the step
+count, so two ``fit`` calls on one trainer give the same history and the
+same ``best_gan.ckpt``. The trainer also draws them when it is built, so
+``train_step`` works before any ``fit``, and
+:meth:`GanTrainer.load_checkpoint` loads a ``best_gan.ckpt`` of either
+package for ``evaluate_ap`` / ``predict_probs``. Data parallelism
+(``mesh_shape`` with ``data > 1``) is not ported (ROADMAP.md queue 1 item
+D5).
 """
 
 from __future__ import annotations
@@ -119,16 +123,22 @@ class GanTrainer:
         self.patch_size = int(cfg.get("patch_size", 128))
         self.d_weight = float(cfg.get("d_weight", 0.01))
         self.dtype = torch.float32          # inputs and losses
-        root = torch.Generator().manual_seed(self.seed)
+        self.root = torch.Generator().manual_seed(self.seed)
         self.generator = zoo.get_model(
             cfg.get("generator", "SegFormerStar"),
             dict(cfg.get("generator_params") or {"encoder_name": "mit_b0"}),
             training=True, dtype=torch.float32, device=self.device)
-        zoo.init_flax(self.generator, fold_in(root, 0))
         self.device = next(self.generator.parameters()).device
         self.discriminator = DNet().to(self.device)
-        zoo.init_flax(self.discriminator, fold_in(root, 2))
         self.seg_loss = L.get_loss(cfg.get("seg_loss", "bce"))
+        self.init()
+
+    def init(self) -> None:
+        """Draw G and D from ``seed`` and start both optimizers and the step
+        count anew (the JAX trainer's ``init``, which every ``fit`` calls)."""
+        cfg = self.configs
+        zoo.init_flax(self.generator, fold_in(self.root, 0))
+        zoo.init_flax(self.discriminator, fold_in(self.root, 2))
         self.g_opt = get_optimizer(
             "adam", [{"params": list(self.generator.parameters()),
                       "lr_mult": 1.0, "weight_decay": GAN_WEIGHT_DECAY}],
@@ -137,7 +147,6 @@ class GanTrainer:
             "adam", [{"params": list(self.discriminator.parameters()),
                       "lr_mult": 1.0, "weight_decay": GAN_WEIGHT_DECAY}],
             float(cfg.get("d_learning_rate", 1e-4)))
-        self.root = root
         self.step_count = 0
 
     # ------------------------------------------------------------------
@@ -219,8 +228,9 @@ class GanTrainer:
 
     def fit(self, train_ds, valid_ds, num_epochs: Optional[int] = None,
             batch_size: int = 2) -> Dict[str, Any]:
-        """Train ``num_epochs`` (``configs["num_epochs"]``, 200) epochs of
-        shuffled full batches (seed ``seed + epoch``), evaluate every
+        """Draw the weights anew (:meth:`init`), then train ``num_epochs``
+        (``configs["num_epochs"]``, 200) epochs of shuffled full batches
+        (seed ``seed + epoch``), evaluate every
         ``eval_every`` epochs and at the last, keep the best AP's
         ``best_gan.ckpt`` and append each epoch's row to
         ``gan_metrics.jsonl``. Returns ``best_ap``, ``history`` and the
@@ -230,6 +240,7 @@ class GanTrainer:
         eval_every = int(cfg.get("eval_every", 40))
         logdir = Path(self.logdir)
         logdir.mkdir(parents=True, exist_ok=True)
+        self.init()
         best_ap, history = -1.0, []
         for epoch in range(num_epochs):
             t0 = time.time()

@@ -17,9 +17,15 @@ would be needed. Validation runs the model in ``eval()`` under
 ``torch.inference_mode()``, where the kernels run on a card. No autocast
 and no loss scale: bf16 needs none, and the JAX step has none.
 
-Not ported: ``encoder_weights`` (the ImageNet ``.pth`` import), ``remat``
-and data parallelism (``mesh_shape`` with ``data > 1``) (ROADMAP.md); each
-raises ``NotImplementedError``.
+``remat`` (or ``is_remat``) recomputes activations in the backward instead
+of keeping them: per block where the model has the field (the flagship's
+encoder blocks and decoder nodes), else over the whole model
+(``layers.remat``); the numbers are those without it. ``encoder_weights``
+loads a torch ``.pth`` into the encoder after the initialisation
+(``utils.torch_import``, JAX's mapping and report), and ``fit(resume_path=)``
+resumes from a ``best_full.ckpt`` of either package. Data parallelism
+(``mesh_shape`` with ``data > 1``) is not ported (ROADMAP.md queue 1 item
+D5) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,17 +43,18 @@ import torch
 import torch.nn.functional as F
 
 from .. import models as zoo
-from ..convert import torch_to_flax
+from ..convert import load_flax, torch_to_flax
 from ..data import (OneLesionSegmentation, batch_iterator, get_datapath,
                     get_transform, prefetch, train_val_split)
 from ..data.patches import read_img_mask_csv
 from ..data.transforms import AugRng
-from ..models.modules.layers import set_generator, wide
+from ..models.modules.layers import remat, set_generator, wide
 from ..ops import image as I
 from ..ops import losses as L
 from ..ops import metrics as M
 from ..optim import get_optimizer, get_scheduler, set_learning_rate
 from ..utils import fold_in, make_logdir, set_global_seed
+from ..utils.torch_import import import_torch_checkpoint
 from .checkpoint import restore_into, resume_state, save_checkpoint
 from .param_groups import param_groups
 
@@ -74,8 +81,20 @@ def model_outputs(out):
     return out[0], None, out[1]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item})")
+def _infer_encoder_arch(cfg: Dict[str, Any]) -> str:
+    """The torch pretrained architecture of the config's ``encoder_name``
+    (BoTSER50_* wraps an se_resnet50 backbone, unetplusplusstar.py:282)."""
+    name = str((cfg.get("model_params") or {}).get("encoder_name", ""))
+    low = name.lower()
+    if "botser50" in low or "seresnet50" in low:
+        return "se_resnet50"
+    if "seresnext101" in low or low == "unet_seresnext101":
+        return "se_resnext101"
+    if "swin" in low:
+        return "swin_small" if "small" in low else "swin_tiny"
+    if "seresnext50" in low:
+        return "se_resnext50"
+    return "se_resnet50"
 
 
 @dataclasses.dataclass
@@ -92,25 +111,36 @@ class Trainer:
 
     def __post_init__(self):
         cfg = self.configs
-        if cfg.get("remat", cfg.get("is_remat", False)):
-            raise _not_ported("remat (gradient checkpointing)",
-                              "ROADMAP.md queue 1 item E")
-        if cfg.get("encoder_weights"):
-            raise _not_ported("encoder_weights (the ImageNet .pth import)",
-                              "ROADMAP.md queue 1 item E")
         if int((cfg.get("mesh_shape") or {}).get("data", 1)) > 1:
-            raise _not_ported("data-parallel training (mesh_shape data > 1)",
-                              "ROADMAP.md queue 1 item E")
+            raise NotImplementedError(
+                "data-parallel training (mesh_shape data > 1) is not ported "
+                "yet (ROADMAP.md queue 1 item D5)")
         self.dtype = (torch.bfloat16 if cfg.get("is_fp16", True)
                       else torch.float32)
+        # remat: the model's own per-block segments where it has the field
+        # (the flagship), else the whole model in one segment (train_step)
+        self.remat = bool(cfg.get("remat", cfg.get("is_remat", False)))
+        self._model_remat = False
         params = dict(cfg.get("model_params") or {})
-        self.model = zoo.get_model(cfg["model_name"], params, training=True,
-                                   dtype=self.dtype, device=self.device)
+        if self.remat:
+            try:
+                self.model = zoo.get_model(
+                    cfg["model_name"], {**params, "remat": True},
+                    training=True, dtype=self.dtype, device=self.device)
+                self._model_remat = True
+            except TypeError:
+                params.pop("remat", None)
+        if not self._model_remat:
+            self.model = zoo.get_model(cfg["model_name"], params,
+                                       training=True, dtype=self.dtype,
+                                       device=self.device)
         # the flax initializers, from the experiment's seed (the JAX
         # Trainer's init_state)
         zoo.init_flax(self.model,
                       fold_in(torch.Generator().manual_seed(self.seed), 0))
         self.device = next(self.model.parameters()).device
+        if cfg.get("encoder_weights"):
+            self._import_encoder(cfg)
         self.deep_supervision = bool(cfg.get("deep_supervision", False)) or \
             bool(params.get("deep_supervision", False))
         self.scale_size = int(cfg.get("scale_size", 1024))
@@ -155,6 +185,21 @@ class Trainer:
             if name.split(".")[0] in self.freeze_bn_scopes
             and name.rsplit(".", 1)[-1] in ("running_mean", "running_var")]
         self.step = 0
+
+    def _import_encoder(self, cfg: Dict[str, Any]) -> None:
+        """Load the torch ``.pth`` of ``encoder_weights`` into the encoder
+        (``encoder_arch``, else inferred from ``encoder_name``) through the
+        JAX layout, with the JAX package's mapping and log line; the
+        key-diff report is kept as ``encoder_report``."""
+        arch = cfg.get("encoder_arch") or _infer_encoder_arch(cfg)
+        variables, report = import_torch_checkpoint(
+            cfg["encoder_weights"], torch_to_flax(self.model), arch=arch)
+        load_flax(self.model, variables)
+        logger.info("pretrained encoder '%s': %d tensors loaded, "
+                    "%d missing, %d mismatched", arch,
+                    len(report["loaded"]), len(report["missing_in_jax"]),
+                    len(report["shape_mismatch"]))
+        self.encoder_report = report
 
     # ------------------------------------------------------------------
     def _wire(self, a: np.ndarray) -> torch.Tensor:
@@ -209,7 +254,8 @@ class Trainer:
         set_generator(model, drop_gen)
         saved = [b.clone() for b in self._frozen_stats]
         self.optimizer.zero_grad(set_to_none=True)
-        loss, parts, final = self.compute_loss(model(x), m4)
+        out = remat(model, x, enabled=self.remat and not self._model_remat)
+        loss, parts, final = self.compute_loss(out, m4)
         loss.backward()
         set_learning_rate(self.optimizer, lr)
         self.optimizer.step()

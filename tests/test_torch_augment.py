@@ -3,8 +3,8 @@
 JAX's PRNG streams cannot be reproduced in torch, so each JAX op's scalars
 and noise are derived from its key here, repeating the op's own ``split``
 order, and handed to the port's ``apply_*``: images at 1e-4 × 255, masks
-exactly. The ``advanced``, ``normal`` and ``advanced_vessel`` policies are
-compared the same way: every gate, pick and op draw recovered from one key
+exactly. The ``advanced``, ``normal``, ``advanced_vessel``, ``easy``,
+``easy_v2`` and ``medium`` policies are compared the same way: every gate, pick and op draw recovered from one key
 (for a few keys) and fed to the port policy in its draw order through a
 scripted generator.
 """
@@ -155,6 +155,11 @@ class Script:
         assert kind == "noise" and z.shape == tuple(shape)
         return var, torch.from_numpy(z)
 
+    def draw_elastic(self, noise_gen, h, w, device=None):
+        kind, fy, fx = self.items.pop(0)
+        assert kind == "elastic" and fy.shape == (h, w, 1)
+        return torch.from_numpy(fy), torch.from_numpy(fx)
+
 
 def _maybe_script(s, key, p, op):
     k_gate, k_fn = jax.random.split(key)
@@ -219,16 +224,87 @@ def _normal_script(s, key):
             _maybe_script(s, ks[3], 0.5, _noise_script)]
 
 
-@pytest.mark.parametrize("policy", ["advanced", "normal",
-                                    "advanced_vessel"])
+def _uniforms(s, key, lo, hi, n):
+    for v in np.asarray(jax.random.uniform(key, (n,), minval=lo, maxval=hi)):
+        s.items.append(("u", lo, hi, float(v)))
+
+
+def _distortion_script(s, key):
+    """OneOf(elastic, grid, optical) at p .5: gate, pick, then the member's
+    draws."""
+    k_gate, k_pick, k_fn = jax.random.split(key, 3)
+    gate = float(jax.random.uniform(k_gate))
+    idx = int(jax.random.randint(k_pick, (), 0, 3))
+    s.items += [("u", 0.0, 1.0, gate), ("i", 0, 3, idx)]
+    if gate < 0.5:
+        k1, k2 = jax.random.split(k_fn)
+        if idx == 0:
+            s.items.append(("elastic", *(np.array(jax.random.uniform(
+                k, (H, H, 1), minval=-1, maxval=1)) for k in (k1, k2))))
+        elif idx == 1:
+            _uniforms(s, k1, -0.3, 0.3, 6)
+            _uniforms(s, k2, -0.3, 0.3, 6)
+        else:
+            k1, k2, k3 = jax.random.split(k_fn, 3)
+            for k, lim in ((k1, 2.0), (k2, 0.5), (k3, 0.5)):
+                s.items.append(("u", -lim, lim, _u(k, -lim, lim)))
+    return (gate < 0.5, idx)
+
+
+def _bc_script(s, key):
+    k1, k2 = jax.random.split(key)
+    s.items += [("u", -0.2, 0.2, _u(k1, -0.2, 0.2)),
+                ("u", -0.2, 0.2, _u(k2, -0.2, 0.2))]
+
+
+def _gamma_script(s, key):
+    s.items.append(("u", 0.8, 1.2, _u(key, 0.8, 1.2)))
+
+
+def _easy_script(s, key):
+    ks = jax.random.split(key, 6)
+    return [_maybe_script(s, ks[0], 0.5, lambda s, k: None),
+            _maybe_script(s, ks[1], 0.5, _rot90_script),
+            _distortion_script(s, ks[2]),
+            _maybe_script(s, ks[3], 0.5, lambda s, k: None),
+            _maybe_script(s, ks[4], 0.5, _bc_script),
+            _maybe_script(s, ks[5], 0.5, _gamma_script)]
+
+
+def _easy_v2_script(s, key):
+    ks = jax.random.split(key, 5)
+    return [_maybe_script(s, ks[0], 0.5, lambda s, k: None),
+            _maybe_script(s, ks[1], 0.5, lambda s, k: None),
+            _maybe_script(s, ks[2], 0.5, _rot90_script),
+            _distortion_script(s, ks[3]),
+            _maybe_script(s, ks[4], 0.5, _ssr_script)]
+
+
+def _medium_script(s, key):
+    ks = jax.random.split(key, 7)
+    return [_maybe_script(s, ks[0], 0.5, lambda s, k: None),
+            _maybe_script(s, ks[1], 0.5, lambda s, k: None),
+            _maybe_script(s, ks[2], 0.7, _rot90_script),
+            _distortion_script(s, ks[3]),
+            _maybe_script(s, ks[4], 0.5, lambda s, k: None),
+            _maybe_script(s, ks[5], 0.5, _bc_script),
+            _maybe_script(s, ks[6], 0.5, _gamma_script)]
+
+
+SCRIPTS = {"advanced": _advanced_script, "normal": _normal_script,
+           "advanced_vessel": _vessel_script, "easy": _easy_script,
+           "easy_v2": _easy_v2_script, "medium": _medium_script}
+
+
+@pytest.mark.parametrize("policy", ["advanced", "normal", "advanced_vessel",
+                                    "easy", "easy_v2", "medium"])
 def test_policy_matches_jax_at_its_draws(policy, monkeypatch):
     script = Script()
-    for name in ("uniform", "randint", "draw_gauss_noise"):
+    for name in ("uniform", "randint", "draw_gauss_noise", "draw_elastic"):
         monkeypatch.setattr(TI, name, getattr(script, name))
     jhard = jax.jit(JT.get_transform(policy)(image_size=H).hard)
     tpol = TT.get_transform(policy)(image_size=H)
-    make = {"advanced": _advanced_script, "normal": _normal_script,
-            "advanced_vessel": _vessel_script}[policy]
+    make = SCRIPTS[policy]
     seen = set()
     img, mask = _sample(5, w=H)     # square, as after resize_pair
     for k in range(8):
@@ -244,12 +320,14 @@ def test_policy_matches_jax_at_its_draws(policy, monkeypatch):
         np.testing.assert_array_equal(got_mask.numpy(),
                                       np.asarray(want_mask))
     assert len(seen) > 3                   # the keys took varied branches
+    if policy in ("easy", "easy_v2", "medium"):   # two distortions or more
+        assert len({t for branches in seen for t in branches
+                    if isinstance(t, tuple) and t[0]}) >= 2
 
 
 def test_unported_policies_raise():
-    for name in ("easy", "easy_v2", "medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.get_transform(name)(image_size=32)
+    """Every JAX policy name builds; an unknown name raises ``KeyError``."""
+    assert set(TT.TRANSFORM_REGISTRY) == set(JT.TRANSFORM_REGISTRY)
     with pytest.raises(KeyError):
         TT.get_transform("nope")
 

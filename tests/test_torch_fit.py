@@ -177,13 +177,12 @@ def _get(tree, path):
     return np.asarray(tree)
 
 
-@pytest.mark.parametrize("extra", [{"remat": True},
-                                   {"encoder_weights": "se_resnet50.pth"},
-                                   {"mesh_shape": {"data": 2}}])
+@pytest.mark.parametrize("extra", [{"mesh_shape": {"data": 2}}])
 def test_trainer_refuses_what_is_not_ported(extra):
     cfg = {"model_name": "unetplusplusstar", "model_params": {"base_dim": 2},
            **extra}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item E"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item D5"):
         Trainer(cfg, device="cpu")
 
 

@@ -346,14 +346,10 @@ def test_upsample2x_w_matches_jax():
 def test_training_raises():
     """What training still refuses: a model left in eval mode under grad
     mode (its K1 wrapper raises rather than return a tensor without a
-    gradient), and ``remat``, which is not ported. The train forward
-    itself is differentiable."""
+    gradient). The train forward itself is differentiable."""
     model = torch_flagship()
     x = torch.zeros(1, 3, 32 * BASE_DIM, 32 * BASE_DIM)
     with pytest.raises(RuntimeError, match="no backward"):
         model(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tzoo.get_model("unetplusplusstar", {**MODEL_PARAMS, "remat": True},
-                       training=True, device="cpu")
     model.train()
     assert model(x).grad_fn is not None

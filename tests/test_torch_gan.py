@@ -185,3 +185,55 @@ def test_gan_fit_writes_the_jax_tree(jax_gan, tmp_path):
 def test_gan_refuses_data_parallel():
     with pytest.raises(NotImplementedError, match="D5"):
         TG.GanTrainer(dict(CFG, mesh_shape={"data": 2}), device="cpu")
+
+
+def _fit_twice(trainer, ds, logdir, read, **kw):
+    """Two ``fit`` calls on one trainer: each one's history without its
+    times, and the ``best_gan.ckpt`` each leaves (read with ``read``)."""
+    out = []
+    for _ in range(2):
+        hist = trainer.fit(ds, ds, **kw)["history"]
+        out.append(([{k: v for k, v in r.items() if k != "time"}
+                     for r in hist],
+                    read(logdir / "best_gan.ckpt")))
+    return out
+
+
+def test_second_fit_restarts_as_in_jax(jax_gan, tmp_path):
+    """A second ``fit`` on the same trainer draws the weights, the Adam
+    states and the step count anew, in JAX and in the port: both give the
+    first fit's history and ``best_gan.ckpt`` again, bit for bit."""
+    make_idrid_tree(tmp_path / "data", lesion_type="SE", n_train=4,
+                    n_test=0, size=(16, 16))
+    ds = OneLesionSegmentation(*get_datapath(
+        tmp_path / "data" / "train" / "image",
+        tmp_path / "data" / "train" / "mask", "SE"))
+    cfg = dict(CFG, num_epochs=2)         # evaluated at the last epoch
+    leaves = lambda tree: {k: np.asarray(v) for k, v in _flat(tree).items()}
+    port = TG.GanTrainer(cfg, logdir=tmp_path / "port", device="cpu")
+    (h1, c1), (h2, c2) = _fit_twice(port, ds, tmp_path / "port",
+                                    lambda p: leaves(JC.load_checkpoint(p)),
+                                    batch_size=4)
+    assert h1 == h2 and len(h1) == 2 and int(c2[("step",)]) == 2
+    assert c1.keys() == c2.keys()
+    for k in c1:
+        np.testing.assert_array_equal(c1[k], c2[k], err_msg=str(k))
+    tr = jax_gan[0]                      # its step is compiled at batch 4
+    tr.logdir = tmp_path / "jax"
+    (j1, d1), (j2, d2) = _fit_twice(tr, ds, tmp_path / "jax",
+                                    lambda p: leaves(JC.load_checkpoint(p)),
+                                    num_epochs=2, batch_size=4)
+    assert j1 == j2 and [set(r) for r in j1] == [set(r) for r in h1]
+    assert int(d2[("step",)]) == 2
+    for k in d1:
+        np.testing.assert_array_equal(d1[k], d2[k], err_msg=str(k))
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out

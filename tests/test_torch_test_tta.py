@@ -215,7 +215,7 @@ TRAIN_MODULES = ("ops.losses", "optim.optimizers", "optim.schedulers",
                  "train.param_groups", "train.trainer", "train.gan",
                  "utils.seeding", "utils.tb", "utils.summary",
                  "utils.profiling", "analysis.visualize", "data.transforms",
-                 "data.datasets")
+                 "data.datasets", "utils.torch_import")
 # the experiment drivers and what they call besides inference and training,
 # and the host code (synthetic data, dataset builders, offline augmentation)
 PIPELINE_MODULES = ("utils.grid", "ops.tiling", "analysis.stat_result",
