@@ -130,6 +130,26 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
     (random values under the real names), its report and the stem conv
     equal to the file. No kernel launches in the phase; resuming from a
     JAX ``best_full.ckpt`` is held by the CPU tests only (no flax here).
+12. multi-GPU (``parallel.mesh``) on the one card: ranks spawned by
+    ``parallel.mesh.spawn`` (the kernels built once by this process
+    before), at world size 1 over NCCL and at world size 2 with both ranks
+    on cuda:0 over gloo (the ranks on cuDNN's heuristics). Each world: one
+    fp32 train step of the flagship at 256² (batch 2, SGD, DropBlock on)
+    data-parallel against the same step unsharded (a ``{"data": 1,
+    "model": n}`` mesh: every rank the whole batch): the loss and the
+    updated parameters at remat parity's card-against-card bounds, the
+    running statistics at 1e-4 (``MG_PARITY_BOUNDS``), the gradients
+    reported; 1 + 1
+    full-width dp steps (bf16, ``advanced``, AdamW: the first loss within
+    1e-2 of the unsharded step's, ms/step and peak memory per rank); one
+    sharded d4 ``predict`` of 3 raw 2848×4288 images in bf16 under each
+    ``pallas_tail`` mode against the unsharded one (K1 / K3 / K2 launches
+    per rank held); ``tiled_predict_sharded`` against ``tiled_predict``
+    (both blends, phase 8's 2048-windows at 1024²); the sharded ensemble
+    (one member per rank) against ``EnsemblePredictor``;
+    ``spatial_flagship_predict`` at full width, 1024², fp32, against the
+    eval forward, with the peak memory of each; one data-parallel GAN step
+    (fp64) against one unsharded. A rank's failure fails the run.
 
 Any failure exits non-zero before the last line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -342,6 +362,22 @@ REMAT_GRAD_FLOOR = {"fp32": 1e-6, "fp64": 1e-14}
 # encoder_weights: a stand-in se_resnet50 .pth (torch's names and shapes,
 # random values): layers 0-4 and last_linear
 SENET_STAGES = ((64, 3), (128, 4), (256, 6), (512, 3))
+# phase 12: multi-GPU on the one card: world size 1 over NCCL, world size 2
+# with both ranks on cuda:0 over gloo (NCCL takes one rank per device)
+MG_WORLDS = ((1, "nccl"), (2, "gloo"))
+MG_PARITY_SIZE = 256                # the train parity: remat parity's size
+MG_TIMED_STEPS = 2                  # full-width dp steps; the 1st compared
+MG_LOSS_RTOL = 1e-2                 # bf16 dp step against the unsharded one
+MG_PREDICT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+MG_SPATIAL_TOL = 1e-3               # × max|logit|, fp32, full width
+MG_GAN_LOSS_RTOL, MG_GAN_UPDATE_TOL = 1e-10, 1e-6   # fp64
+# the dp parity step against the unsharded one: (loss, running statistics,
+# updated parameters) as fractions of each leaf's max: remat parity's
+# card-against-card bounds for the loss and the parameters; the statistics
+# at 1e-4, as the split batch reorders the fp32 sums of x and x² whose
+# difference is the variance (E[x²] − E[x]² cancels: 1.39e-5 measured at
+# world size 2, PERF.md; the CPU tests hold the same step exact in fp64)
+MG_PARITY_BOUNDS = (REMAT_LOSS_RTOL, 1e-4, REMAT_GRAD_TOL)
 
 
 class SmokeFailure(Exception):
@@ -2199,13 +2235,14 @@ def gan_full_width(device, card, root):
             "fit_s": t_fit}
 
 
-def gan_step_state(device, dtype, images, masks):
+def gan_step_state(device, dtype, images, masks, **extra):
     """One small GAN step on ``device`` in ``dtype`` from the seed's
-    weights: the losses and each leaf's update (new − old) on the CPU."""
+    weights (``extra``: config keys, e.g. a ``mesh_shape``): the losses and
+    each leaf's update (new − old) on the CPU."""
     import torch
     from eyediseasesegmentation_tpu_torch.train.gan import GanTrainer
 
-    trainer = GanTrainer(dict(GAN_SMALL), seed=SEED, device=device)
+    trainer = GanTrainer(dict(GAN_SMALL, **extra), seed=SEED, device=device)
     if dtype == torch.float64:
         for model in (trainer.generator, trainer.discriminator):
             model.double()
@@ -2734,6 +2771,418 @@ def phase_train_options(device, card, root):
             "encoder_weights": report, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-GPU (one process per rank, spawned from here)
+# ---------------------------------------------------------------------------
+
+def set_tail_mode(model, mode):
+    """Switch every ``pallas_tail`` of a flagship to ``mode`` (a key of
+    TAIL_MODES) in place: the weights stay."""
+    for mod in model.modules():
+        if hasattr(mod, "pallas_tail"):
+            mod.pallas_tail = TAIL_MODES[mode]
+
+
+def mg_step_state(trainer):
+    """The trainer's gradients, running statistics and parameters on the
+    CPU in fp64."""
+    m = trainer.model
+    return ({k: p.grad.detach().double().cpu()
+             for k, p in m.named_parameters() if p.grad is not None},
+            {k: b.detach().double().cpu() for k, b in m.named_buffers()
+             if k.rsplit(".", 1)[-1].startswith("running")},
+            {k: p.detach().double().cpu() for k, p in m.named_parameters()})
+
+
+def mg_unsharded(trainer, ref_mesh, fn):
+    """``fn()`` with the trainer on ``ref_mesh`` (data axis 1: every rank
+    the whole batch, the step of world size 1)."""
+    mesh, dp = trainer.mesh, trainer.dp
+    trainer.mesh, trainer.dp = ref_mesh, False
+    try:
+        return fn()
+    finally:
+        trainer.mesh, trainer.dp = mesh, dp
+
+
+def mg_train(mesh, device, ref_mesh):
+    """(a) The fp32 parity step at 256² and the timed full-width
+    steps."""
+    import numpy as np
+    import torch
+    from eyediseasesegmentation_tpu_torch import models as zoo
+    from eyediseasesegmentation_tpu_torch.train.trainer import Trainer
+    from eyediseasesegmentation_tpu_torch.utils import fold_in
+
+    n = mesh.size
+    out = {}
+    cfg = dict(TRAIN_CONFIG, is_fp16=False, scale_size=MG_PARITY_SIZE,
+               optimizer="sgd", model_params=dict(
+                   TRAIN_CONFIG["model_params"],
+                   base_dim=MG_PARITY_SIZE // 32, drop_block_prob=0.3))
+    rng = np.random.default_rng(SEED + 60)
+    images = rng.integers(0, 256, (2, MG_PARITY_SIZE, MG_PARITY_SIZE, 3),
+                          dtype=np.uint8)
+    masks = (rng.random((2, MG_PARITY_SIZE, MG_PARITY_SIZE)) < 0.1).astype(
+        np.uint8)
+    tr = Trainer(cfg, device=device)
+    check(tr.mesh.shape == {"data": n}, f"dp mesh {tr.mesh.shape}")
+    zoo.init_random(tr.model, torch.Generator().manual_seed(SEED))
+    start = {k: v.clone() for k, v in tr.model.state_dict().items()}
+
+    def step(unsharded):
+        tr.model.load_state_dict(start)
+        tr.optimizer.state.clear()
+        tr.step = 0
+        run = lambda: tr.train_step(  # noqa: E731
+            images, masks, fold_in(torch.Generator().manual_seed(SEED),
+                                   1000), 1e-3)
+        m = mg_unsharded(tr, ref_mesh, run) if unsharded else run()
+        return (float(m["loss"]), *mg_step_state(tr))
+
+    t0 = time.perf_counter()
+    want, got = step(True), step(False)
+    out["parity_seconds"] = time.perf_counter() - t0
+    del tr
+    torch.cuda.empty_cache()
+    loss_tol, stat_tol, param_tol = MG_PARITY_BOUNDS
+    loss = abs(got[0] - want[0]) / abs(want[0])
+    check(loss <= loss_tol, f"dp parity: loss {got[0]} against {want[0]}")
+    stat = max(float((got[2][k] - v).abs().max())
+               / max(float(v.abs().max()), 1e-300)
+               for k, v in want[2].items())
+    check(stat <= stat_tol, f"dp parity: running statistics {stat}")
+    par = max(float((got[3][k] - v).abs().max())
+              / max(float(v.abs().max()), 1e-300)
+              for k, v in want[3].items())
+    check(par <= param_tol, f"dp parity: updated parameters {par}")
+    # reported, not held: fp32 gradients through a hundred train-mode
+    # BatchNorms carry the reordered sums' rounding (the CPU tests hold
+    # them in fp64 at 1e-12)
+    scale = max(float(g.abs().max()) for g in want[1].values())
+    grad = max(float((got[1][k] - g).abs().max())
+               / max(float(g.abs().max()), REMAT_GRAD_FLOOR["fp32"] * scale)
+               for k, g in want[1].items())
+    out["parity"] = {"loss_rel": loss, "stat_rel": stat, "param_rel": par,
+                     "grad_rel": grad}
+
+    # timed full-width steps: bf16, advanced, AdamW, global batch 2
+    t0 = time.perf_counter()
+    tr = Trainer(dict(TRAIN_CONFIG), device=device)
+    out["build_seconds"] = time.perf_counter() - t0
+    images, masks = train_batch()
+    gen = fold_in(torch.Generator().manual_seed(SEED), 1000)
+    start = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    t0 = time.perf_counter()
+    want = mg_unsharded(
+        tr, ref_mesh,
+        lambda: float(tr.train_step(images, masks, gen, 1e-3)["loss"]))
+    out["unsharded_step_seconds"] = time.perf_counter() - t0
+    tr.model.load_state_dict(start)
+    tr.optimizer.state.clear()
+    tr.step = 0
+    del start
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = float(tr.train_step(images, masks, gen, 1e-3)["loss"])
+    torch.cuda.synchronize()
+    out["first_dp_step_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(MG_TIMED_STEPS - 1):
+        last = float(tr.train_step(images, masks, gen, 1e-3)["loss"])
+    ms = 1e3 * (time.perf_counter() - t0) / (MG_TIMED_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(np.isfinite(first) and np.isfinite(last),
+          f"dp full width: losses {first}, {last}")
+    check(abs(first - want) <= MG_LOSS_RTOL * abs(want),
+          f"dp full width: loss {first} against the unsharded {want}")
+    del tr
+    torch.cuda.empty_cache()
+    out["timing"] = {"ms_per_step": ms, "peak_gib": peak, "loss": first,
+                     "unsharded_loss": want}
+    return out
+
+
+def mg_predict(mesh, device, model, imgs):
+    """(b) The sharded d4 predict under each pallas_tail mode against the
+    unsharded predict (on rank 0), with the launches of the sharded one."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
+
+    cfg = {"dataset_name": "IDRiD", "gray": False, "scale_size": SCALE}
+    sharded = TTAPredictor(model, cfg, tta="d4", ori_hw=FULL_HW, mesh=mesh)
+    plain = TTAPredictor(model, cfg, tta="d4", ori_hw=FULL_HW)
+    out = {}
+    sharded.predict(imgs)               # the first call's lazy set-up
+    for mode in TAIL_MODES:
+        set_tail_mode(model, mode)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        probs = sharded.predict(imgs)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts, by_variant = read_counts(), read_variant_counts()
+        check(counts == expected_counts(mode, 1),
+              f"sharded predict {mode}: launches {counts}, expected "
+              f"{expected_counts(mode, 1)}")
+        check_variants(f"sharded predict {mode}", by_variant, "sm90")
+        check(tuple(probs.shape) == (BATCH, *FULL_HW)
+              and bool(torch.isfinite(probs).all()),
+              f"sharded predict {mode}: {tuple(probs.shape)}")
+        err = None
+        if mesh.is_main:
+            ref = plain.predict(imgs)
+            err = float((probs - ref).abs().max() / ref.abs().max())
+            check(err <= MG_PREDICT_TOL["bfloat16"],
+                  f"sharded predict {mode}: {err} of max|ref|")
+        out[mode] = {"launches": counts, "ms": ms, "rel_err": err}
+        del probs
+    set_tail_mode(model, TTA_MODE)
+    return out
+
+
+def mg_tiled(mesh, device, model, image):
+    """(c) ``tiled_predict_sharded`` against ``tiled_predict`` on phase 8's
+    tiled workload (windows of 2048 with 32 px of overlap, each a d4 batch
+    at 1024²), both blends."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
+    from eyediseasesegmentation_tpu_torch.ops.tiling import (
+        tiled_predict, tiled_predict_sharded)
+    from eyediseasesegmentation_tpu_torch.utils import make_grid
+
+    cfg = {"dataset_name": "IDRiD", "gray": False, "scale_size": SCALE}
+    engine = TTAPredictor(model, cfg, tta="d4", resize=False)
+    grid = make_grid(FULL_HW, window=2 * SCALE, min_overlap=32)
+    out = {}
+    for blend in ("overwrite", "mean"):
+        reset_counts()
+        with torch.inference_mode():
+            got = tiled_predict_sharded(engine.predict_tile, image, grid,
+                                        2 * SCALE, SCALE, mesh, blend=blend)
+        counts = read_counts()
+        err = None
+        if mesh.is_main:
+            with torch.inference_mode():
+                ref = tiled_predict(engine.predict_tile, image, grid,
+                                    2 * SCALE, SCALE, blend=blend)
+            err = float((got - ref).abs().max() / ref.abs().max())
+            check(err <= MG_PREDICT_TOL["bfloat16"],
+                  f"tiled sharded {blend}: {err} of max|ref|")
+        out[blend] = {"launches": counts, "tiles": len(grid),
+                      "rel_err": err}
+    return out
+
+
+def mg_ensemble(mesh, device, model, second, imgs):
+    """(d) The device-axis ensemble (one member per rank; at world size 1
+    the one member, two raise) against ``EnsemblePredictor``."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.infer.ensemble import (
+        EnsemblePredictor, make_sharded_ensemble)
+    from eyediseasesegmentation_tpu_torch.infer.tta import TTAPredictor
+
+    cfg = {"dataset_name": "IDRiD", "gray": False, "scale_size": SCALE}
+    members = [TTAPredictor(m, cfg, tta="d4", ori_hw=FULL_HW)
+               for m in (model, second)][:mesh.size]
+    out = {"members": len(members)}
+    if mesh.size == 1:
+        try:
+            make_sharded_ensemble(members * 2, mesh)
+            raise SmokeFailure("sharded ensemble: 2 members on 1 rank ran")
+        except ValueError as e:
+            out["two_on_one"] = str(e)
+    # cuDNN's choice may differ between the ranks' processes: its
+    # deterministic algorithms make the members' arithmetic one
+    torch.backends.cudnn.deterministic = True
+    reset_counts()
+    got = make_sharded_ensemble(members, mesh).predict(imgs)
+    out["launches"] = read_counts()
+    if mesh.is_main:
+        want = EnsemblePredictor(members).predict(imgs)
+        out["abs_err"] = float((got - want).abs().max())
+        check(out["abs_err"] <= ENSEMBLE_TOL,
+              f"sharded ensemble: {out['abs_err']} from the members' mean")
+    torch.backends.cudnn.deterministic = False
+    del got
+    return out
+
+
+def mg_spatial(mesh, device, state):
+    """(e) ``spatial_flagship_predict`` at full width, 1024², fp32, batch
+    1, against the eval forward (rank 0), with the peak memory of each."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.parallel.spatial_model import (
+        spatial_flagship_predict)
+
+    model = build_model(torch.float32, device, state=state)
+    x = torch.randn(1, 3, SCALE, SCALE,
+                    generator=torch.Generator().manual_seed(SEED + 1)).to(
+        device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode():
+        got = spatial_flagship_predict(model, x, mesh, gather=True)
+    torch.cuda.synchronize()
+    out = {"launches": read_counts(),
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+    check(tuple(got.shape) == (1, 1, SCALE, SCALE)
+          and bool(torch.isfinite(got).all()), "spatial flagship output")
+    if mesh.is_main:
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            ref = model(x)
+        torch.cuda.synchronize()
+        out["unsharded_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                     - base) / 2 ** 30
+        out["rel_err"] = float((got - ref).abs().max() / ref.abs().max())
+        check(out["rel_err"] <= MG_SPATIAL_TOL,
+              f"spatial flagship: {out['rel_err']} of max|logit|")
+        del ref
+    del model, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def mg_gan(mesh, device, ref_mesh):
+    """(f) One data-parallel GAN step against one without a mesh (fp64)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 30)
+    size = GAN_SMALL["image_size"]
+    images = (rng.random((2, size, size, 3)) * 255).astype(np.float32)
+    masks = (rng.random((2, size, size)) < 0.2).astype(np.float32)
+    want = gan_step_state(device, torch.float64, images, masks,
+                          mesh_shape=ref_mesh.shape)
+    got = gan_step_state(device, torch.float64, images, masks)
+    loss = max(abs(got[0][k] - v) / abs(v) for k, v in want[0].items())
+    check(loss <= MG_GAN_LOSS_RTOL, f"dp gan: losses {got[0]} / {want[0]}")
+    upd = max(float((got[1][k] - v).abs().max())
+              / max(float(v.abs().max()), 1e-300)
+              for k, v in want[1].items())
+    check(upd <= MG_GAN_UPDATE_TOL, f"dp gan: updates {upd}")
+    return {"loss_rel": loss, "update_rel": upd}
+
+
+def mg_rank(mesh, out_dir):
+    """One rank of phase 12 (a spawned process): the parts (a)-(f), each
+    checked here (rank 0 against the unsharded references); writes its
+    numbers to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from eyediseasesegmentation_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a new process would spend tens of seconds in cuDNN's timed search for
+    # every shape again: the ranks take its heuristics (their ms with them)
+    torch.backends.cudnn.benchmark = False
+    device = mesh.device
+    res = {"rank": mesh.rank, "world": mesh.size, "backend": mesh.backend,
+           "seconds": {}}
+    if mesh.size == 1:
+        one = torch.ones(1, device=device)
+        dist.all_reduce(one)
+        check(float(one) == 1.0, "nccl all_reduce at world size 1")
+    ref_mesh = make_mesh({"data": 1, "model": mesh.size}, device)
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res[name] = fn(*args)
+        res["seconds"][name] = time.perf_counter() - t0
+
+    part("train", mg_train, mesh, device, ref_mesh)
+    model = build_model(torch.bfloat16, device, mode=TTA_MODE)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    imgs = torch.randint(0, 256, (BATCH, *FULL_HW, 3), generator=gen,
+                         device=device, dtype=torch.uint8)
+    part("predict", mg_predict, mesh, device, model, imgs)
+    part("tiled", mg_tiled, mesh, device, model, imgs[0])
+    second = build_model(torch.bfloat16, device, mode=TTA_MODE,
+                         seed=ENSEMBLE_SEED)
+    part("ensemble", mg_ensemble, mesh, device, model, second, imgs[:2])
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, second, imgs
+    torch.cuda.empty_cache()
+    part("spatial", mg_spatial, mesh, device, state)
+    part("gan", mg_gan, mesh, device, ref_mesh)
+    with open(Path(out_dir) / f"rank{mesh.rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def phase_multi_gpu(card, rank_fn=mg_rank, worlds=MG_WORLDS):
+    """Phase 12: ``mg_rank`` at each (world size, backend) of MG_WORLDS,
+    every rank on cuda:0. The kernels are built (and cached under
+    build/kernels) by this process before, so the ranks only load them.
+    Returns {world tag: [each rank's numbers]}."""
+    import tempfile
+
+    import torch
+    from eyediseasesegmentation_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    for world, backend in worlds:
+        tag = f"w{world}_{backend}"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                spawn(rank_fn, world, "cuda:0", tmp, backend=backend)
+            except Exception as e:          # a rank's failure, re-raised
+                raise SmokeFailure(f"multi-GPU {tag}: {e}") from None
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(world)]
+        out[tag] = ranks
+        for r in ranks:
+            tr, pr = r["train"], r["predict"]
+            print(f"multi-GPU {tag} rank {r['rank']}/{world}: dp parity "
+                  f"256² fp32 (loss, statistics, parameters, gradients: "
+                  f"worst rel) " + "/".join(
+                      f"{tr['parity'][k]:.2e}" for k in (
+                          "loss_rel", "stat_rel", "param_rel", "grad_rel"))
+                  + "; full-width "
+                  f"dp step {tr['timing']['ms_per_step']:.2f} ms, peak "
+                  f"{tr['timing']['peak_gib']:.3f} GiB, loss "
+                  f"{tr['timing']['loss']:.6f} (unsharded "
+                  f"{tr['timing']['unsharded_loss']:.6f}; parity "
+                  f"{tr['parity_seconds']:.1f} s, build "
+                  f"{tr['build_seconds']:.1f} s, unsharded step "
+                  f"{tr['unsharded_step_seconds']:.1f} s, first dp step "
+                  f"{tr['first_dp_step_seconds']:.1f} s); sharded predict "
+                  + ", ".join(f"{m} {v['ms']:.1f} ms K1/K3/K2 "
+                              f"{v['launches']['axial_attention']}/"
+                              f"{v['launches']['scse_conv']}/"
+                              f"{v['launches']['decode_pair']} err "
+                              f"{v['rel_err']}" for m, v in pr.items())
+                  + f"; tiled {r['tiled']}; ensemble {r['ensemble']}; "
+                  f"spatial {r['spatial']}; gan {r['gan']}; seconds "
+                  f"{ {k: round(v, 1) for k, v in r['seconds'].items()} }; "
+                  f"{card}", flush=True)
+        print(f"multi-GPU {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"multi-GPU phase {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+    return out
+
+
+def multi_gpu_launches(mg, name, paths):
+    """{world tag: {path: [launches of ``name`` per rank]}}; a path of
+    predict's is ``predict:<mode>``."""
+    def count(r, path):
+        if path.startswith("predict:"):
+            return r["predict"][path.split(":")[1]]["launches"][name]
+        if path == "tiled":
+            return sum(v["launches"][name] for v in r["tiled"].values())
+        return r[path]["launches"][name]
+    return {tag: {path: [count(r, path) for r in ranks] for path in paths}
+            for tag, ranks in mg.items()}
+
+
 def phase_profile_train(device, logdir):
     """Device time by op of one full-width train step after two warm-ups
     (``utils.profiling.trace``, which writes its Chrome trace to
@@ -2887,6 +3336,7 @@ def main(argv=None) -> int:
                                      pipe["test"])
             phase_gan(device, card, Path(tmp))
             phase_train_options(device, card, Path(tmp))
+        mg = phase_multi_gpu(card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2923,10 +3373,15 @@ def main(argv=None) -> int:
               ensemble_launches=ens["ensemble"]["axial_attention"],
               zoo_launches=ens["zoo"]["axial_attention"],
               zoo_card_vs_cpu_wmma_launches=ens["zoo_parity"][
-                  "axial_attention"]),
+                  "axial_attention"],
+              multi_gpu=multi_gpu_launches(
+                  mg, "axial_attention",
+                  [f"predict:{m}" for m in TAIL_MODES]
+                  + ["tiled", "ensemble", "spatial"])),
         entry("scse_conv", counts["v1"]["scse_conv"], conv["scse_conv"],
               variant=conv["scse_conv"]["variant"],
-              variants=by_variant["v1"]["scse_conv"]),
+              variants=by_variant["v1"]["scse_conv"],
+              multi_gpu=multi_gpu_launches(mg, "scse_conv", ["predict:v1"])),
         entry("decode_pair", counts["pair"]["decode_pair"],
               conv["decode_pair"], variant=conv["decode_pair"]["variant"],
               variants=by_variant["pair"]["decode_pair"],
@@ -2938,7 +3393,10 @@ def main(argv=None) -> int:
               ensemble_launches=ens["ensemble"]["decode_pair"],
               zoo_launches=ens["zoo"]["decode_pair"],
               zoo_card_vs_cpu_wmma_launches=ens["zoo_parity"][
-                  "decode_pair"]),
+                  "decode_pair"],
+              multi_gpu=multi_gpu_launches(
+                  mg, "decode_pair", ["predict:pair", "predict:pair_up",
+                                      "tiled", "ensemble"])),
         entry("conv3x3", k4_launches, conv["conv3x3"],
               variant=conv["conv3x3"]["variant"], variants=k4_variants,
               shapes=conv["conv3x3"]["shapes"]),
@@ -2949,6 +3407,11 @@ def main(argv=None) -> int:
                 if field in k]
     launched += [(k["name"], "up_part0", k["up_part0"]["launches"])
                  for k in kernels if "up_part0" in k]
+    launched += [(k["name"], f"multi_gpu {tag} {path} rank {r}", n)
+                 for k in kernels if "multi_gpu" in k
+                 for tag, paths in k["multi_gpu"].items()
+                 for path, per_rank in paths.items()
+                 for r, n in enumerate(per_rank)]
     check(all(n > 0 for _, _, n in launched),
           f"a kernel of the path was never launched: {launched}")
     print(card, flush=True)

@@ -162,10 +162,19 @@ class BaseTransform:
             img = self.preprocessing_fn(img)
         return img
 
-    def batch_train(self, imgs, masks, rng: AugRng) -> Pair:
-        """One sample at a time, in batch order, from one ``rng``."""
-        outs = [self.train(imgs[i], masks[i], rng)
-                for i in range(imgs.shape[0])]
+    def batch_train(self, imgs, masks, rng: AugRng,
+                    rows: Optional[slice] = None) -> Pair:
+        """One sample at a time, in batch order, from one ``rng``.
+
+        ``rows``: return only these samples of the batch (a rank's share
+        under data parallelism); ``imgs`` / ``masks`` need to hold the
+        batch up to ``rows.stop``. The samples before them are augmented
+        too, so that the draws each kept sample sees are the ones it sees
+        in the whole batch, and one seed gives one augmented global batch
+        at every world size."""
+        stop = imgs.shape[0] if rows is None else rows.stop
+        outs = [self.train(imgs[i], masks[i], rng) for i in range(stop)]
+        outs = outs[rows] if rows is not None else outs
         return (torch.stack([o[0] for o in outs]),
                 torch.stack([o[1] for o in outs]))
 

@@ -4,8 +4,10 @@ Counterpart of the repository's ``ensemble.py``: each run directory gives a
 model rebuilt from its ``config.json`` and best checkpoint, wrapped in TTA;
 the members' probabilities are averaged on the device, then the AUC-PR, the
 threshold search and the mask export run once on the ensemble's. The models
-run on the GPU unless ``--device cpu`` is given. ``--sharded`` (one member
-per device) waits for the multi-GPU port and raises.
+run on the GPU unless ``--device cpu`` is given. ``--sharded`` runs one
+member per rank (launch under ``torchrun --nproc_per_node=N``, N at least
+the members; ``--device cpu``: gloo); without it, under ``torchrun``, rank
+0 alone runs the ensemble. Rank 0 alone writes.
 
     python -m eyediseasesegmentation_tpu_torch.ensemble \
         --logdirs models/IDRiD/EX/run1 models/IDRiD/EX/run2 \
@@ -21,7 +23,8 @@ import logging
 from typing import Any, Dict, Optional, Sequence
 
 from .config import TestConfig
-from .infer.ensemble import SHARDED, predict
+from .infer.ensemble import predict
+from .parallel import mesh as P
 
 
 def parse_arg(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -34,7 +37,8 @@ def parse_arg(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--config", default=None,
                         help="json overriding TestConfig fields")
     parser.add_argument("--sharded", action="store_true",
-                        help="one member per device (not ported: raises)")
+                        help="one member per rank of the torchrun job "
+                             "(psum-mean)")
     parser.add_argument("--device", default=None,
                         help="torch device of the models (default: the GPU)")
     return parser.parse_args(argv)
@@ -42,8 +46,9 @@ def parse_arg(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_arg(argv)
-    if args.sharded:
-        raise NotImplementedError(SHARDED)
+    mesh = P.make_mesh(device=args.device) if args.sharded else None
+    if mesh is None and not P.is_main_process():
+        return {}
     overrides = {}
     if args.config:
         with open(args.config) as f:
@@ -51,11 +56,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     config = TestConfig.from_dict({**TestConfig().get_all_attributes(),
                                    **overrides}).get_all_attributes()
     result = predict(config, args.logdirs, args.out, tta=args.tta,
-                     batch_size=args.batch_size, device=args.device)
+                     batch_size=args.batch_size, mesh=mesh,
+                     device=args.device)
     logging.info("ensemble result: %s", result)
     return result
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
+    # under torchrun the other ranks log warnings only
+    logging.basicConfig(level=logging.INFO if P.is_main_process()
+                        else logging.WARNING)
     main()

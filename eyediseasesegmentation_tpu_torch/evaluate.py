@@ -6,7 +6,8 @@ precision and recall at ``--threshold`` and the average precision, after
 TTA at the run's ``scale_size``, as one table (``log_pretty_table``) with an
 ``Avg:`` row. The model runs on the GPU unless ``--device cpu`` is given.
 ``--tiled`` predicts each image by sliding window (``ops.tiling``) with the
-same TTA views per tile, and scores against the masks as they are.
+same TTA views per tile, and scores against the masks as they are. Under
+``torchrun`` rank 0 alone evaluates and prints; the other ranks return.
 
     python -m eyediseasesegmentation_tpu_torch.evaluate --logdir RUN \
         [--tta d4] [--tiled] [--threshold 0.5] [--config overrides.json] \
@@ -30,6 +31,7 @@ from .data.datasets import batch_iterator
 from .infer.tta import TTAPredictor, load_model_for_inference
 from .ops import metrics as M
 from .ops.tiling import tiled_predict
+from .parallel.mesh import is_main_process
 from .utils import log_pretty_table, make_grid
 
 COLUMNS = ["image", "dice", "iou", "precision", "recall", "AP"]
@@ -51,6 +53,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[list]:
     parser.add_argument("--device", default=None,
                         help="torch device of the model (default: the GPU)")
     args = parser.parse_args(argv)
+    if not is_main_process():
+        return []
 
     overrides = {}
     if args.config:
@@ -117,5 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[list]:
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
+    # under torchrun the other ranks log warnings only
+    logging.basicConfig(level=logging.INFO if is_main_process()
+                        else logging.WARNING)
     main()

@@ -5,7 +5,9 @@ mode: ``load_model_for_inference`` rebuilds a model from a run directory
 (``config.json`` and an msgpack checkpoint in the JAX package's format);
 ``TTAPredictor`` runs the V views of a batch (``d4``, ``flip``, ``hflip``,
 ``none``) as one forward, inverts and averages their logits and applies one
-sigmoid (sigmoid of the mean, not the mean of sigmoids); ``test_tta`` runs a
+sigmoid (sigmoid of the mean, not the mean of sigmoids); with a ``mesh``
+the fused V·B view batch is split over its ranks and the logits gathered,
+so every rank returns the probabilities; ``test_tta`` runs a
 test directory through it once, scores it on the device (per-image AP or
 ROC-AUC and the 19-threshold sweep), picks the optimal thresholds and
 exports uint8 masks.
@@ -43,7 +45,8 @@ from ..data import TestSegmentation, get_datapath, get_transform
 from ..data.datasets import batch_iterator, prefetch
 from ..ops import image as I
 from ..ops import metrics as M
-from ..ops.tiling import tiled_predict
+from ..ops.tiling import tiled_predict, tiled_predict_sharded
+from ..parallel import mesh as P
 from ..train.checkpoint import load_checkpoint
 from ..utils import make_grid, save_output
 
@@ -134,7 +137,11 @@ class TTAPredictor:
     square and leave at that size. The model's device and ``dtype`` are
     used. ``multiscale_max_res``: the largest side of a monolithic
     multiscale forward; larger scales run tiled (at scale_size 1024, scale 4
-    would be a 4096² forward)."""
+    would be a 4096² forward). ``mesh`` (``parallel.make_mesh``): the
+    view families' V·B forward batch is split over its data axis (d4's 8
+    views onto 8 GPUs), which must divide it; the model's weights are
+    rank 0's (broadcast here); the other aliases run whole on every
+    rank."""
 
     model: torch.nn.Module
     config: Dict[str, Any]
@@ -142,6 +149,7 @@ class TTAPredictor:
     ori_hw: Optional[Tuple[int, int]] = None
     resize: bool = True
     multiscale_max_res: int = 2048
+    mesh: Optional[P.Mesh] = None
 
     def __post_init__(self):
         if self.tta not in TTA_ALIASES:
@@ -154,6 +162,8 @@ class TTAPredictor:
         self.transform = get_transform("normal")(image_size=self.scale_size,
                                                  preprocessing_fn=prep_fn)
         self.device = next(self.model.parameters()).device
+        if self.mesh is not None and self.mesh.size > 1:
+            P.replicate(self.model, self.mesh)
 
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
         """(N, H, W, C) → fp32 logits (N, H, W). The input is cast to the
@@ -231,7 +241,18 @@ class TTAPredictor:
         # first conv casts its input anyway, so the stack is half the bytes
         views = make_views(imgs.to(self.model.dtype))
         v, b, h, w, c = views.shape
-        logits = self._forward(views.reshape(v * b, h, w, c))
+        flat = views.reshape(v * b, h, w, c)
+        if self.mesh is not None and self.mesh.axis_size() > 1:
+            n = self.mesh.axis_size()
+            if (v * b) % n:
+                raise ValueError(
+                    f"TTAPredictor: {v} views × batch {b} = {v * b} forward "
+                    f"images do not split over {n} ranks")
+            logits = P.all_gather(
+                self._forward(flat[P.batch_rows(self.mesh, v * b)]),
+                self.mesh)
+        else:
+            logits = self._forward(flat)
         logits = inverse(logits.reshape(v, b, h, w)[..., None])[..., 0]
         return torch.sigmoid(logits.mean(0))
 
@@ -355,15 +376,18 @@ def export_masks_on_device(prob_batches, optim, out_path, prob_path=None):
         _save(pending.popleft())
 
 
-def _curve_report(totals, metric: str, name: str, cfg: Dict[str, Any]):
+def _curve_report(totals, metric: str, name: str, cfg: Dict[str, Any],
+                  figure: bool = True):
     """The PR (lesion) or ROC (vessel) curve family of the pass's summed
-    counters, its figure under outputs/<ds>/figures/<lesion>/, and the
-    mean per-image AUC. Returns (mean_auc, thresholds, out_root)."""
+    counters, its figure under outputs/<ds>/figures/<lesion>/ (unless
+    ``figure`` is false), and the mean per-image AUC. Returns (mean_auc,
+    thresholds, out_root)."""
     from ..analysis.aucpr import pr_curve_report, roc_curve_report
 
     mean_auc = float(totals["ap_sum"]) / max(float(totals["ap_count"]), 1)
     out_root = Path(cfg.get("out_dir", "outputs")) / cfg["dataset_name"]
-    figure_dir = out_root / "figures" / cfg["lesion_type"]
+    figure_dir = (out_root / "figures" / cfg["lesion_type"] if figure
+                  else None)
     if metric == "pr":
         thresholds = pr_curve_report(totals["tp"], totals["ap"], totals["pp"],
                                      name, figure_dir=figure_dir)
@@ -442,7 +466,7 @@ test_tta.__test__ = False  # keep pytest from collecting the API function
 # ---------------------------------------------------------------------------
 
 def tiled_pass(tile_engine: TTAPredictor, dataset, grid, window: int,
-               scale_size: int, metric: str = "pr"
+               scale_size: int, metric: str = "pr", mesh=None
                ) -> Tuple[Dict[str, np.ndarray], List[Tuple[torch.Tensor,
                                                             str]]]:
     """Each image of ``dataset`` (``TestSegmentation``-shaped samples:
@@ -454,7 +478,9 @@ def tiled_pass(tile_engine: TTAPredictor, dataset, grid, window: int,
     ``batch_image_metrics`` (AP for ``metric='pr'``, ROC-AUC for 'roc') on
     the image's probabilities on their device. Decode runs one image ahead
     (``prefetch``), counters come to the host one image behind. Every image
-    must have the size the grid covers. Returns (totals, [(device
+    must have the size the grid covers. ``mesh``: the tiles of each image
+    are split over its ranks (:func:`ops.tiling.tiled_predict_sharded`),
+    and every rank gets the whole map. Returns (totals, [(device
     probabilities (H, W), file name)])."""
     grid = np.asarray(grid)
     # the last tile of each axis ends at the image's edge
@@ -480,8 +506,12 @@ def tiled_pass(tile_engine: TTAPredictor, dataset, grid, window: int,
         mask = torch.from_numpy(s["mask"].astype(np.uint8)).to(
             tile_engine.device)
         with torch.inference_mode():
-            probs = tiled_predict(tile_engine.predict_tile, image, grid,
-                                  window, scale_size)
+            if mesh is not None:
+                probs = tiled_predict_sharded(tile_engine.predict_tile, image,
+                                              grid, window, scale_size, mesh)
+            else:
+                probs = tiled_predict(tile_engine.predict_tile, image, grid,
+                                      window, scale_size)
             stats = M.batch_image_metrics(
                 probs[None], mask[None],
                 score="ap" if metric == "pr" else "roc")
@@ -494,7 +524,8 @@ def tiled_pass(tile_engine: TTAPredictor, dataset, grid, window: int,
 
 
 def tta_patches(logdir, config: Dict[str, Any], args: Dict[str, Any],
-                metric: str = "pr", device=None) -> Dict[str, Any]:
+                metric: str = "pr", device=None, mesh=None
+                ) -> Dict[str, Any]:
     """Sliding-window inference over the test directory, then the same AUC,
     threshold search and export as :func:`test_tta`.
 
@@ -503,8 +534,14 @@ def tta_patches(logdir, config: Dict[str, Any], args: Dict[str, Any],
     ``metric='pr'`` is the lesion path (tta.py:216-236), ``metric='roc'``
     the vessel tiled path (tta_vessel.py:206-218). Masks are written under
     outputs/<ds>/tta/<lesion>/<exp>/ with IDRiD's ``_<LESION>`` suffix
-    dropped from the names. ``device`` as in :func:`test_tta`."""
+    dropped from the names. ``device`` as in :func:`test_tta`. ``mesh``
+    (``parallel.make_mesh``): each image's tiles are split over its ranks
+    (:func:`ops.tiling.tiled_predict_sharded`, the reference's
+    later-tile-wins rule kept exactly); every rank returns the result, and
+    rank 0 alone writes the figure and the masks."""
     logdir = Path(logdir)
+    if device is None and mesh is not None:
+        device = mesh.device
     model, run_cfg = load_model_for_inference(
         logdir, best=_str2bool(args.get("best", "true")), device=device)
     cfg = {**run_cfg, **config}
@@ -520,12 +557,18 @@ def tta_patches(logdir, config: Dict[str, Any], args: Dict[str, Any],
     window = min(2 * scale_size, first["ori_h"], first["ori_w"])
     grid = make_grid((first["ori_h"], first["ori_w"]), window=window,
                      min_overlap=32)
+    if mesh is not None and mesh.size > 1:
+        P.replicate(model, mesh)
     totals, probs = tiled_pass(tile_engine, ds, grid, window, scale_size,
-                               metric)
+                               metric, mesh)
+    main = mesh is None or mesh.is_main
     mean_auc, thresholds, out_root = _curve_report(totals, metric,
-                                                   logdir.name, cfg)
+                                                   logdir.name, cfg, main)
     logger.info("MEAN-AUC %.5f | %d images, tiled", mean_auc, len(probs))
     out_path = out_root / "tta" / cfg["lesion_type"] / logdir.name
+    if not main:
+        return {"mean_auc": mean_auc, "thresholds": thresholds,
+                "out_dir": str(out_path)}
     out_path.mkdir(parents=True, exist_ok=True)
     # IDRiD name remap _<LESION>.tif → .jpg (tta.py:191,234)
     export_masks_on_device(

@@ -7,7 +7,8 @@ is one call of ``ops.axial_attention`` (the CUDA kernel on a GPU tensor). In
 training the attention runs as plain differentiable ops (the kernel has no
 backward): the norms use fp32 batch statistics, normalise with the biased
 variance and move their running variance by the **unbiased** one, n/(n−1),
-as the JAX package's inline ``_Norm`` does.
+as the JAX package's inline ``_Norm`` does (n the whole batch's count under
+``parallel.mesh.data_parallel``).
 
 Parameters keep the layout that op takes: ``to_qkv`` / ``to_kq`` / ``to_v``
 are (in, out) matrices whose output channel is q_idx·H + h, and
@@ -24,8 +25,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import axial_attention as AK
-from .layers import (BatchNorm, PortModule, batch_moments, conv2d,
-                     recomputing, wide)
+from .layers import (BatchNorm, PortModule, batch_count, batch_moments,
+                     conv2d, recomputing, wide)
 
 
 class RelativePosEnc2D(PortModule):
@@ -63,7 +64,7 @@ def norm_train(norm: BatchNorm, x: torch.Tensor) -> torch.Tensor:
     dtype."""
     axes = tuple(range(x.ndim - 1))
     xf, mean, var = batch_moments(x, axes)
-    n = x.numel() // x.shape[-1]
+    n = batch_count(x, axes)       # the whole batch's under data_parallel
     if not recomputing():
         with torch.no_grad():
             m = norm.momentum

@@ -11,6 +11,13 @@ their running update), DropBlock in ``ConvBNReLU`` and dropout in the
 classification head. The noise of those draws comes from the module's
 ``generator`` (see :func:`set_generator`); the packed layouts of the JAX
 package (``packed > 1``) are exact rewrites with no counterpart here.
+
+Under ``parallel.mesh.data_parallel`` a train forward is one rank's share
+of a batch split over the ranks, and what JAX computes over the logical
+global batch is computed over it here too: the BatchNorms' statistics from
+all-reduced sums and counts (differentiably), and DropBlock's and
+dropout's masks drawn for the whole batch, this rank's rows kept, so their
+generators advance as they would at world size 1.
 """
 
 from __future__ import annotations
@@ -19,10 +26,13 @@ import contextlib
 import threading
 from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ...parallel import mesh as P
 
 Parts = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -168,10 +178,37 @@ class LayerNorm(nn.LayerNorm):
 
 def batch_moments(x: torch.Tensor, axes) -> tuple:
     """Batch mean and biased variance ``E[x²] − E[x]²`` over ``axes`` in
-    fp32 (fp64 for an fp64 input), as the JAX package computes them."""
+    fp32 (fp64 for an fp64 input), as the JAX package computes them. Under
+    ``data_parallel`` (``axes`` hold the batch axis) the moments are those
+    of the whole batch: the ranks' sums, all-reduced, over the global
+    count."""
     xf = x.to(wide(x.dtype))
-    mean = xf.mean(axes)
-    return xf, mean, (xf * xf).mean(axes) - mean * mean
+    mesh = P.active_data_mesh()
+    if mesh is None:
+        mean = xf.mean(axes)
+        return xf, mean, (xf * xf).mean(axes) - mean * mean
+    sums = P.psum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), mesh)
+    n = batch_count(x, axes)
+    mean = sums[0] / n
+    return xf, mean, sums[1] / n - mean * mean
+
+
+def batch_count(x: torch.Tensor, axes) -> int:
+    """The elements per channel that :func:`batch_moments` reduces over:
+    the whole batch's under ``data_parallel``."""
+    n = int(np.prod([x.shape[a] for a in axes]))
+    mesh = P.active_data_mesh()
+    return n if mesh is None else n * mesh.axis_size()
+
+
+def global_rows(n_local: int):
+    """(rows of the whole batch, this rank's slice of them) under
+    ``data_parallel``; (n_local, None) outside it."""
+    mesh = P.active_data_mesh()
+    if mesh is None:
+        return n_local, None
+    n = n_local * mesh.axis_size()
+    return n, P.batch_rows(mesh, n)
 
 
 class BatchNorm(PortModule):
@@ -229,17 +266,22 @@ def dropblock_gamma(drop_prob: float, h: int, w: int,
 
 
 def drop_block(x: torch.Tensor, centres: torch.Tensor,
-               block_size: int = 7) -> torch.Tensor:
+               block_size: int = 7, rows: Optional[slice] = None
+               ) -> torch.Tensor:
     """Apply DropBlock with the drawn block ``centres`` ((N, 1, H, W) in
     {0, 1}): centres grow to ``block_size``² blocks by a stride-1 SAME
     max-pool, the kept elements are renormalised by
-    ``keep.numel() / max(Σ keep, 1)``."""
+    ``keep.numel() / max(Σ keep, 1)``. ``rows``: ``centres`` are the whole
+    batch's, ``x`` holds these rows of it (the norm is the whole
+    batch's)."""
     h, w = x.shape[2], x.shape[3]
     bs = min(block_size, h, w)
     lo = (bs - 1) // 2
     c = F.pad(centres.to(x.dtype), (lo, bs - 1 - lo, lo, bs - 1 - lo))
     keep = 1.0 - F.max_pool2d(c, bs, stride=1)
     norm = keep.numel() / torch.clamp(keep.sum(), min=1.0)
+    if rows is not None:
+        keep = keep[rows]
     return x * keep * norm.to(x.dtype)
 
 
@@ -253,8 +295,11 @@ class DropBlock2d(NoiseModule):
         super().__init__()
         self.drop_prob, self.block_size = drop_prob, block_size
 
-    def draw(self, x: torch.Tensor) -> torch.Tensor:
-        n, _, h, w = x.shape
+    def draw(self, x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+        """The centres of ``n`` samples (default: ``x``'s batch) of
+        ``x``'s map size."""
+        _, _, h, w = x.shape
+        n = x.shape[0] if n is None else n
         gamma = dropblock_gamma(self.drop_prob, h, w, self.block_size)
         u = torch.rand((n, 1, h, w), generator=self.generator,
                        device=x.device)
@@ -263,7 +308,10 @@ class DropBlock2d(NoiseModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.drop_prob <= 0.0:
             return x
-        return drop_block(x, self.draw(x), self.block_size)
+        n, rows = global_rows(x.shape[0])
+        if rows is None:
+            return drop_block(x, self.draw(x), self.block_size)
+        return drop_block(x, self.draw(x, n), self.block_size, rows)
 
 
 class Dropout(NoiseModule):
@@ -276,13 +324,23 @@ class Dropout(NoiseModule):
         self.rate = rate
 
     def draw(self, x: torch.Tensor) -> torch.Tensor:
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
-        return u < 1.0 - self.rate
+        return draw_keep(x, self.rate, self.generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
         return dropout(x, self.draw(x), self.rate)
+
+
+def draw_keep(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout's keep mask of ``x``'s shape (kept with probability
+    ``1 − rate``); under ``data_parallel`` drawn for the whole batch, this
+    rank's rows kept."""
+    n, rows = global_rows(x.shape[0])
+    u = torch.rand((n,) + tuple(x.shape[1:]), generator=generator,
+                   device=x.device)
+    return (u if rows is None else u[rows]) < 1.0 - rate
 
 
 def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
@@ -445,9 +503,8 @@ class ClassificationHead(NoiseModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean((2, 3))
         if self.training and self.dropout > 0.0:
-            u = torch.rand(s.shape, generator=self.generator,
-                           device=s.device)
-            s = dropout(s, u < 1.0 - self.dropout, self.dropout)
+            s = dropout(s, draw_keep(s, self.dropout, self.generator),
+                        self.dropout)
         dt = self.dtype
         s = F.linear(s.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt))
         return s.to(wide(dt))

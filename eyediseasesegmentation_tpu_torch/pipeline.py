@@ -7,7 +7,10 @@ the same flags (--createprob / --optim_thres / --best / --tta / --config /
 ``models/<dataset>/<lesion>/<exp>/``; masks, figures and CSVs under
 ``outputs/``) and the same SEED=1999, plus ``--device``: the model runs on
 the GPU unless ``--device cpu`` is given. Whole images go through
-``test_tta``, ``data_type: "tile"`` through ``tta_patches``.
+``test_tta``, ``data_type: "tile"`` through ``tta_patches``. Under
+``torchrun --nproc_per_node=N -m eyediseasesegmentation_tpu_torch.pipeline``
+the training is data-parallel over the N ranks (the batch size a multiple
+of N) and rank 0 alone runs the inference and the analysis and writes.
 
     python -m eyediseasesegmentation_tpu_torch.pipeline [--tta d4] \\
         [--config overrides.json] [--exp_name NAME] [--device cpu]
@@ -25,6 +28,7 @@ from .analysis.stat_result import export_result
 from .config import BaseConfig, TestConfig
 from .infer.tta import test_tta, tta_patches
 from .train.trainer import train_model
+from .parallel.mesh import is_main_process
 from .utils import set_global_seed
 
 logger = logging.getLogger("eyediseasesegmentation_tpu_torch")
@@ -77,6 +81,8 @@ def start_experiment(args: Dict[str, Any]):
 
     logger.info("=== TRAINING ===")
     logdir = train_model(exp_name, configs, SEED, device=device)
+    if not is_main_process():      # under torchrun: rank 0 infers
+        return logdir, None
 
     logger.info("=== INFERENCE (TTA) ===")
     args = dict(args, createprob="true")
@@ -94,5 +100,7 @@ def start_experiment(args: Dict[str, Any]):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
+    # under torchrun the other ranks log warnings only
+    logging.basicConfig(level=logging.INFO if is_main_process()
+                        else logging.WARNING)
     start_experiment(parse_arg())

@@ -5,7 +5,8 @@ Counterpart of the repository's ``pipeline_vessel.py`` (reference
 train_vessel / tta_vessel / stat_result_vessel): DRIVE-layout defaults
 (``VESSEL_DEFAULTS``: 608² padded images, ``advanced_vessel``
 augmentation), the ROC threshold search, whole images without a resize.
-Flags as in :mod:`.pipeline`, ``--device`` included.
+Flags as in :mod:`.pipeline`, ``--device`` included; under ``torchrun``
+the training is data-parallel and rank 0 alone infers and writes.
 
     python -m eyediseasesegmentation_tpu_torch.pipeline_vessel \\
         [--config overrides.json] [--exp_name NAME] [--device cpu]
@@ -20,6 +21,7 @@ from .analysis.stat_result_vessel import export_result_vessel
 from .infer.tta import test_tta, tta_patches
 from .pipeline import SEED, experiment_configs, parse_arg
 from .train.trainer import train_model
+from .parallel.mesh import is_main_process
 from .utils import set_global_seed
 
 logger = logging.getLogger("eyediseasesegmentation_tpu_torch")
@@ -48,6 +50,8 @@ def start_experiment(args: Dict[str, Any]):
 
     logger.info("=== TRAINING (vessel) ===")
     logdir = train_model(exp_name, configs, SEED, device=device)
+    if not is_main_process():      # under torchrun: rank 0 infers
+        return logdir, None
 
     logger.info("=== INFERENCE (TTA, AUC-ROC) ===")
     if test_configs["data_type"] == "all":
@@ -71,5 +75,7 @@ def start_experiment(args: Dict[str, Any]):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
+    # under torchrun the other ranks log warnings only
+    logging.basicConfig(level=logging.INFO if is_main_process()
+                        else logging.WARNING)
     start_experiment(parse_arg())

@@ -28,9 +28,15 @@ count, so two ``fit`` calls on one trainer give the same history and the
 same ``best_gan.ckpt``. The trainer also draws them when it is built, so
 ``train_step`` works before any ``fit``, and
 :meth:`GanTrainer.load_checkpoint` loads a ``best_gan.ckpt`` of either
-package for ``evaluate_ap`` / ``predict_probs``. Data parallelism
-(``mesh_shape`` with ``data > 1``) is not ported (ROADMAP.md queue 1 item
-D5).
+package for ``evaluate_ap`` / ``predict_probs``.
+
+Data parallelism follows the trainer's rules (``train/trainer.py``): the
+mesh is ``mesh_shape``, else ``{"data": gcd(batch_size, ranks)}``; each
+rank takes its rows of D's and G's batch, the patch scores and G's logits
+are gathered (differentiably) so that both losses are the whole batch's,
+G's BatchNorms run under ``data_parallel``, both models' gradients are
+averaged over the ranks, ``evaluate_ap`` all-reduces its sums, and rank 0
+alone writes.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from ..models.modules.layers import (PortModule, conv2d_same, linear,
 from ..ops import losses as L
 from ..ops import metrics as M
 from ..optim import get_optimizer
+from ..parallel import mesh as P
 from ..utils import fold_in
 from .checkpoint import load_checkpoint, save_checkpoint
 
@@ -115,10 +122,11 @@ class GanTrainer:
 
     def __post_init__(self):
         cfg = self.configs
-        if int((cfg.get("mesh_shape") or {}).get("data", 1)) > 1:
-            raise NotImplementedError(
-                "data-parallel GAN training (mesh_shape data > 1) is not "
-                "ported yet (ROADMAP.md queue 1 item D5)")
+        self.mesh = P.data_mesh(cfg.get("mesh_shape"),
+                                int(cfg.get("batch_size", 2)), self.device)
+        self.dp = self.mesh.axis_size() > 1
+        if self.device is None and self.mesh.size > 1:
+            self.device = self.mesh.device
         self.image_size = int(cfg.get("image_size", 512))
         self.patch_size = int(cfg.get("patch_size", 128))
         self.d_weight = float(cfg.get("d_weight", 0.01))
@@ -139,6 +147,9 @@ class GanTrainer:
         cfg = self.configs
         zoo.init_flax(self.generator, fold_in(self.root, 0))
         zoo.init_flax(self.discriminator, fold_in(self.root, 2))
+        if self.mesh.size > 1:
+            P.replicate(self.generator, self.mesh)
+            P.replicate(self.discriminator, self.mesh)
         self.g_opt = get_optimizer(
             "adam", [{"params": list(self.generator.parameters()),
                       "lr_mult": 1.0, "weight_decay": GAN_WEIGHT_DECAY}],
@@ -158,8 +169,12 @@ class GanTrainer:
     def train_step(self, images, masks) -> Dict[str, torch.Tensor]:
         """One D step and one G step on a batch (images (B, H, W, 3) in
         [0, 255], masks (B, H, W) in {0, 1}; host arrays or tensors).
-        Returns the four losses as device scalars."""
+        Returns the four losses as device scalars. Under data parallelism
+        this rank's rows of the batch."""
         G, D = self.generator, self.discriminator
+        if self.dp:
+            rows = P.batch_rows(self.mesh, len(images))
+            images, masks = images[rows], masks[rows]
         x = self._wire(images).permute(0, 3, 1, 2)
         m4 = self._wire(masks)
         m4 = m4[:, None] if m4.ndim == 3 else m4.permute(0, 3, 1, 2)
@@ -170,10 +185,11 @@ class GanTrainer:
         with torch.no_grad():
             fake_mask = torch.sigmoid(_logits(G(x)))
         self.d_opt.zero_grad(set_to_none=True)
-        d_real = D(image_to_patch(x * m4, patch))
-        d_fake = D(image_to_patch(x * fake_mask, patch))
+        d_real = self._gather(D(image_to_patch(x * m4, patch)))
+        d_fake = self._gather(D(image_to_patch(x * fake_mask, patch)))
         d_loss = torch.mean(1.0 - d_real) + torch.mean(d_fake)
         d_loss.backward()
+        P.mean_grads(D.parameters(), self.mesh)
         self.d_opt.step()
 
         # the generator (l.211-217) against the updated discriminator
@@ -183,12 +199,15 @@ class GanTrainer:
         D.requires_grad_(False)
         try:
             self.g_opt.zero_grad(set_to_none=True)
-            logits = _logits(G(x))
-            fake = image_to_patch(x * torch.sigmoid(logits), patch)
-            seg = self.seg_loss(logits.to(self.dtype), m4)
-            adv = torch.mean(1.0 - D(fake)) * self.d_weight
-            g_loss = seg + adv
-            g_loss.backward()
+            with P.data_parallel(self.mesh):
+                logits = _logits(G(x))
+                fake = image_to_patch(x * torch.sigmoid(logits), patch)
+                seg = self.seg_loss(self._gather(logits).to(self.dtype),
+                                    self._gather(m4))
+                adv = torch.mean(1.0 - self._gather(D(fake))) * self.d_weight
+                g_loss = seg + adv
+                g_loss.backward()
+            P.mean_grads(G.parameters(), self.mesh)
             self.g_opt.step()
         finally:
             D.requires_grad_(True)
@@ -196,6 +215,10 @@ class GanTrainer:
         self.step_count += 1
         return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
                 "seg": seg.detach(), "adv": adv.detach()}
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows as the whole batch's (differentiable)."""
+        return P.all_gather(t, self.mesh) if self.dp else t
 
     @torch.inference_mode()
     def predict_probs(self, images) -> torch.Tensor:
@@ -207,17 +230,22 @@ class GanTrainer:
     def evaluate_ap(self, dataset, batch_size: int = 2) -> float:
         """Mean average precision over the images of ``dataset`` whose mask
         is not empty (eval_model, l.93-129); the padded batch's ``n_valid``
-        drops the padding. One host read at the end."""
-        ap_sum = torch.zeros((), device=self.device)
-        count = torch.zeros((), device=self.device)
+        drops the padding. Under data parallelism each rank scores its rows
+        and the sums are all-reduced. One host read at the end."""
+        sums = torch.zeros(2, device=self.device)
         for batch in batch_iterator(dataset, batch_size, shuffle=False):
-            probs = self.predict_probs(batch["image"])
-            masks = self._wire(batch["mask"])
-            for i in range(int(batch["n_valid"])):
+            rows = (P.batch_rows(self.mesh, batch_size) if self.dp
+                    else slice(0, batch_size))
+            probs = self.predict_probs(batch["image"][rows])
+            masks = self._wire(batch["mask"][rows])
+            for i in range(min(int(batch["n_valid"]) - rows.start,
+                               len(probs))):
                 has = (masks[i].sum() > 0).float()
-                ap_sum += has * M.average_precision(probs[i], masks[i])
-                count += has
-        return float(ap_sum) / max(float(count), 1.0)
+                sums[0] += has * M.average_precision(probs[i], masks[i])
+                sums[1] += has
+        if self.dp:
+            sums = P.psum(sums, self.mesh)
+        return float(sums[0]) / max(float(sums[1]), 1.0)
 
     def load_checkpoint(self, path: Union[str, Path]) -> dict:
         """Load a ``best_gan.ckpt`` written by either package into G and D;
@@ -239,7 +267,9 @@ class GanTrainer:
         num_epochs = num_epochs or int(cfg.get("num_epochs", 200))
         eval_every = int(cfg.get("eval_every", 40))
         logdir = Path(self.logdir)
-        logdir.mkdir(parents=True, exist_ok=True)
+        main = self.mesh.is_main
+        if main:
+            logdir.mkdir(parents=True, exist_ok=True)
         self.init()
         best_ap, history = -1.0, []
         for epoch in range(num_epochs):
@@ -257,12 +287,15 @@ class GanTrainer:
                 row["val_ap"] = ap
                 if ap > best_ap:
                     best_ap = ap
-                    save_checkpoint(logdir / "best_gan.ckpt", gan_to_flax(
-                        self.generator, self.discriminator, epoch,
-                        self.step_count))
+                    if main:
+                        save_checkpoint(logdir / "best_gan.ckpt",
+                                        gan_to_flax(self.generator,
+                                                    self.discriminator,
+                                                    epoch, self.step_count))
             history.append(row)
-            with open(logdir / "gan_metrics.jsonl", "a") as f:
-                f.write(json.dumps(row) + "\n")
+            if main:
+                with open(logdir / "gan_metrics.jsonl", "a") as f:
+                    f.write(json.dumps(row) + "\n")
             logger.info("gan epoch %d | d %.4f | g %.4f", epoch,
                         agg.get("d_loss", float("nan")),
                         agg.get("g_loss", float("nan")))

@@ -23,9 +23,18 @@ encoder blocks and decoder nodes), else over the whole model
 (``layers.remat``); the numbers are those without it. ``encoder_weights``
 loads a torch ``.pth`` into the encoder after the initialisation
 (``utils.torch_import``, JAX's mapping and report), and ``fit(resume_path=)``
-resumes from a ``best_full.ckpt`` of either package. Data parallelism
-(``mesh_shape`` with ``data > 1``) is not ported (ROADMAP.md queue 1 item
-D5) and raises ``NotImplementedError``.
+resumes from a ``best_full.ckpt`` of either package.
+
+Data parallelism (``parallel.mesh``): the mesh is ``mesh_shape``, else
+JAX's rule ``{"data": gcd(batch_size, ranks)}``, and must span the job.
+Every rank reads the same host batch and keeps its rows; the forward runs
+under ``data_parallel``, so BatchNorm, DropBlock and dropout see the whole
+batch; the outputs are gathered (differentiably) and every rank computes
+the whole batch's loss and metrics; the gradients are averaged over the
+ranks, so every rank takes the step of world size 1. ``eval_step`` splits
+its batch the same way and all-reduces its counts. Only rank 0 writes the
+run directory; resuming reads the checkpoint on every rank and broadcasts
+rank 0's state.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from ..ops import image as I
 from ..ops import losses as L
 from ..ops import metrics as M
 from ..optim import get_optimizer, get_scheduler, set_learning_rate
+from ..parallel import mesh as P
 from ..utils import fold_in, make_logdir, set_global_seed
 from ..utils.torch_import import import_torch_checkpoint
 from .checkpoint import restore_into, resume_state, save_checkpoint
@@ -111,10 +121,11 @@ class Trainer:
 
     def __post_init__(self):
         cfg = self.configs
-        if int((cfg.get("mesh_shape") or {}).get("data", 1)) > 1:
-            raise NotImplementedError(
-                "data-parallel training (mesh_shape data > 1) is not ported "
-                "yet (ROADMAP.md queue 1 item D5)")
+        self.mesh = P.data_mesh(cfg.get("mesh_shape"),
+                                int(cfg.get("batch_size", 2)), self.device)
+        self.dp = self.mesh.axis_size() > 1
+        if self.device is None and self.mesh.size > 1:
+            self.device = self.mesh.device
         self.dtype = (torch.bfloat16 if cfg.get("is_fp16", True)
                       else torch.float32)
         # remat: the model's own per-block segments where it has the field
@@ -141,6 +152,8 @@ class Trainer:
         self.device = next(self.model.parameters()).device
         if cfg.get("encoder_weights"):
             self._import_encoder(cfg)
+        if self.mesh.size > 1:
+            P.replicate(self.model, self.mesh)
         self.deep_supervision = bool(cfg.get("deep_supervision", False)) or \
             bool(params.get("deep_supervision", False))
         self.scale_size = int(cfg.get("scale_size", 1024))
@@ -213,6 +226,16 @@ class Trainer:
                 self._uint8_wire = False
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def gather(self, out):
+        """A model output (tensor, or tuple / list of them) of this rank's
+        rows as the whole batch's, on every rank (differentiable); itself
+        without data parallelism."""
+        if not self.dp or out is None:
+            return out
+        if isinstance(out, (tuple, list)):
+            return type(out)(self.gather(o) for o in out)
+        return P.all_gather(out, self.mesh)
+
     def compute_loss(self, out, m4: torch.Tensor):
         """(total, parts, final) of the model output against the (B, 1, H,
         W) mask: the compound loss on fp32 (or wider) logits, ``ds_weight``
@@ -246,17 +269,26 @@ class Trainer:
         model = self.model
         model.train()
         aug_rng, drop_gen = self.step_generators(epoch_gen)
+        rows = P.batch_rows(self.mesh, len(images)) if self.dp else None
+        if rows is not None:
+            # the samples up to this rank's last are augmented (the draws)
+            images, masks = images[:rows.stop], masks[:rows.stop]
         images = self._wire(images).float()
         masks = self._wire(masks).float()
-        images, masks = self.transform.batch_train(images, masks, aug_rng)
+        images, masks = self.transform.batch_train(images, masks, aug_rng,
+                                                   rows)
         x = images.permute(0, 3, 1, 2)
         m4 = masks[:, None]
         set_generator(model, drop_gen)
         saved = [b.clone() for b in self._frozen_stats]
         self.optimizer.zero_grad(set_to_none=True)
-        out = remat(model, x, enabled=self.remat and not self._model_remat)
-        loss, parts, final = self.compute_loss(out, m4)
-        loss.backward()
+        with P.data_parallel(self.mesh):
+            out = remat(model, x,
+                        enabled=self.remat and not self._model_remat)
+            out, m4 = self.gather(out), self.gather(m4)
+            loss, parts, final = self.compute_loss(out, m4)
+            loss.backward()
+        P.mean_grads(model.parameters(), self.mesh)
         set_learning_rate(self.optimizer, lr)
         self.optimizer.step()
         with torch.no_grad():
@@ -275,34 +307,48 @@ class Trainer:
         ``n_valid`` real): the test transform, the GT through
         LongestMaxSize + pad (nearest), val loss and hard counts at 0.5,
         the 19-threshold sweep counts of the valid images, and the raw
-        image at eval geometry for the overlays. The model is put back in
-        ``train()`` mode."""
+        image at eval geometry for the overlays. Under data parallelism
+        each rank runs the forward on its rows; the logits are gathered for
+        the loss and the overlays, the counts all-reduced. The model is put
+        back in ``train()`` mode."""
         model = self.model
         model.eval()
+        rows = (P.batch_rows(self.mesh, len(images)) if self.dp
+                else slice(None))
         try:
             with torch.inference_mode():
                 raw = self._wire(images).float()
                 m = self._wire(masks).float()
                 m = m[..., None] if m.ndim == 3 else m
-                x = self.transform.test(raw).permute(0, 3, 1, 2)
+                x = self.transform.test(raw[rows]).permute(0, 3, 1, 2)
                 out = model(x)
                 tm = I.longest_max_size_pad(m, self.scale_size,
                                             method="nearest")
                 tm4 = tm.permute(0, 3, 1, 2)
-                val_loss, _, final = self.compute_loss(out, tm4)
+                val_loss, _, final = self.compute_loss(self.gather(out), tm4)
                 probs = torch.sigmoid(final.float())
-                valid = (torch.arange(x.shape[0], device=x.device)
-                         < n_valid).float()
+                local = probs[rows]
+                first = rows.start or 0
+                valid = (torch.arange(first, first + x.shape[0],
+                                      device=x.device) < n_valid).float()
                 vmask = valid[:, None, None, None]
-                pred = (probs > 0.5).float() * vmask
-                true = (tm4 > 0.5).float() * vmask
+                pred = (local > 0.5).float() * vmask
+                true = (tm4[rows] > 0.5).float() * vmask
                 tp, ap, pp, _ = M.threshold_sweep(
-                    probs, tm4, valid_mask=vmask.expand_as(probs))
+                    local, tm4[rows], valid_mask=vmask.expand_as(local))
+                counts = torch.cat([torch.stack([(pred * true).sum(),
+                                                 pred.sum(), true.sum()]),
+                                    tp, ap, pp])
+                if self.dp:
+                    counts = P.psum(counts, self.mesh)
+                k = len(tp)
                 vis = I.longest_max_size_pad(raw, self.scale_size)
-                return {"inter": (pred * true).sum(), "pred": pred.sum(),
-                        "true": true.sum(), "tp": tp, "ap": ap, "pp": pp,
-                        "loss": val_loss, "vis_img": vis,
-                        "probs": probs[:, 0], "gt": tm[..., 0]}
+                return {"inter": counts[0], "pred": counts[1],
+                        "true": counts[2], "tp": counts[3:3 + k],
+                        "ap": counts[3 + k:3 + 2 * k],
+                        "pp": counts[3 + 2 * k:], "loss": val_loss,
+                        "vis_img": vis, "probs": probs[:, 0],
+                        "gt": tm[..., 0]}
         finally:
             model.train()
 
@@ -325,12 +371,19 @@ class Trainer:
         batch_size = int(cfg.get("batch_size", 2))
         patience = int(cfg.get("early_stopping_patience", 20))
         logdir = Path(self.logdir) if self.logdir else Path("models/_scratch")
-        (logdir / "checkpoints").mkdir(parents=True, exist_ok=True)
+        main = self.mesh.is_main
+        if main:
+            (logdir / "checkpoints").mkdir(parents=True, exist_ok=True)
 
         root = set_global_seed(self.seed)
         start_epoch = 0
         if resume_path:
             restored = restore_into(self.model, self.optimizer, resume_path)
+            if self.mesh.size > 1:
+                P.replicate(self.model, self.mesh)
+                P.broadcast_([t for st in self.optimizer.state.values()
+                              for t in st.values()
+                              if isinstance(t, torch.Tensor)], self.mesh)
             self.step = restored["step"]
             start_epoch = restored["epoch"] + 1
             logger.info("resumed from %s at epoch %d", resume_path,
@@ -347,9 +400,9 @@ class Trainer:
         global_step = 0
         metrics_file = logdir / "metrics.jsonl"
         from ..utils.tb import TensorBoardWriter, row_to_scalars
-        tb = TensorBoardWriter(logdir,
-                               enabled=bool(cfg.get("tensorboard", True)))
-        visualize = bool(cfg.get("visualize_batches", True))
+        tb = TensorBoardWriter(
+            logdir, enabled=main and bool(cfg.get("tensorboard", True)))
+        visualize = main and bool(cfg.get("visualize_batches", True))
 
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
@@ -437,14 +490,16 @@ class Trainer:
                 bad_epochs = 0
             else:
                 bad_epochs += 1
-            self._checkpoints(logdir, metric_val, epoch, better)
+            if main:
+                self._checkpoints(logdir, metric_val, epoch, better)
 
             row = {"epoch": epoch, "lr": lr, "time": time.time() - t0,
                    **{f"train_{k}": v for k, v in train_agg.items()},
                    **{f"val_{k}": v for k, v in val_metrics.items()}}
             history.append(row)
-            with open(metrics_file, "a") as f:
-                f.write(json.dumps(row) + "\n")
+            if main:
+                with open(metrics_file, "a") as f:
+                    f.write(json.dumps(row) + "\n")
             tb.add_scalars(epoch, row_to_scalars(row))
             logger.info("epoch %d | loss %.4f | val_dice %.4f | lr %.2e | "
                         "%.1fs", epoch, train_agg.get("loss", float("nan")),
@@ -482,12 +537,17 @@ def train_model(exp_name: str, configs: Dict[str, Any], seed: int = 1999,
     config's paths (``data_type: "tile"``: from the patch csvs
     ``tile_train_csv`` / ``tile_val_csv``, by default under
     ``processed_root``), train, and write checkpoints and config.json under
-    ``<models_root>/<dataset>/<lesion>/<exp_name>/``."""
+    ``<models_root>/<dataset>/<lesion>/<exp_name>/``. Under ``torchrun``
+    every rank trains its share of each batch and rank 0 alone writes."""
     cfg = dict(configs)
-    logdir = make_logdir(models_root, cfg.get("dataset_name", "IDRiD"),
-                         cfg.get("lesion_type", "EX"), exp_name)
-    with open(logdir / "config.json", "w") as f:
-        json.dump(cfg, f, indent=2, default=str)
+    ds_name, lesion = cfg.get("dataset_name", "IDRiD"), cfg.get(
+        "lesion_type", "EX")
+    if P.is_main_process():
+        logdir = make_logdir(models_root, ds_name, lesion, exp_name)
+        with open(logdir / "config.json", "w") as f:
+            json.dump(cfg, f, indent=2, default=str)
+    else:
+        logdir = Path(models_root) / ds_name / lesion / str(exp_name)
     if cfg.get("data_type", "all") == "tile":
         # the img_mask.csv patch lists of data.patches.build_dataframe
         # (reference train.py:77-110 reads

@@ -169,14 +169,20 @@ def test_heterogeneous_predict_matches_jax(runs, captured):
 
 
 def test_sharded_ensemble_raises(runs):
+    """One member per rank: two members on a one-rank job raise JAX's
+    ``ValueError`` in the driver, ``predict`` and ``make_sharded_ensemble``
+    (tests/test_torch_sharded_infer.py runs them on two ranks)."""
+    from eyediseasesegmentation_tpu_torch.parallel import make_mesh
     logdirs = [str(runs["unet_a"]), str(runs["unet_b"])]
-    with pytest.raises(NotImplementedError, match="D5"):
+    mesh = make_mesh(device="cpu")
+    with pytest.raises(ValueError, match="2 members > 1 devices"):
         tdriver.main(["--logdirs", *logdirs, "--sharded", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="D5"):
+    with pytest.raises(ValueError, match="2 members > 1 devices"):
         tensemble.predict(runs["test"], logdirs, runs["root"] / "x",
-                          mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="D5"):
-        tensemble.make_sharded_ensemble([], object())
+                          mesh=mesh, device="cpu")
+    members = tensemble.get_best_models(logdirs, ori_hw=ORI, device="cpu")
+    with pytest.raises(ValueError, match="2 members > 1 devices"):
+        tensemble.make_sharded_ensemble(members, mesh)
 
 
 def test_driver_flags():

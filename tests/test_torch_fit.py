@@ -181,8 +181,9 @@ def _get(tree, path):
 def test_trainer_refuses_what_is_not_ported(extra):
     cfg = {"model_name": "unetplusplusstar", "model_params": {"base_dim": 2},
            **extra}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item D5"):
+    # data parallelism is ported: two data ranks on a one-rank job raise
+    # (tests/test_torch_data_parallel.py trains on two)
+    with pytest.raises(ValueError, match="covers 2 ranks, but the job has 1"):
         Trainer(cfg, device="cpu")
 
 

@@ -183,7 +183,9 @@ def test_gan_fit_writes_the_jax_tree(jax_gan, tmp_path):
 
 
 def test_gan_refuses_data_parallel():
-    with pytest.raises(NotImplementedError, match="D5"):
+    """Two data ranks on a one-rank job (tests/test_torch_data_parallel.py
+    trains on two)."""
+    with pytest.raises(ValueError, match="covers 2 ranks, but the job has 1"):
         TG.GanTrainer(dict(CFG, mesh_shape={"data": 2}), device="cpu")
 
 

@@ -228,6 +228,10 @@ ZOO_MODULES = ("models.unet", "models.unetplusplus", "models.classic",
                "models.effnet", "models.unet3plus", "models.smp_extra",
                "models.transformers", "models.misc", "infer.ensemble",
                "ensemble")
+# multi-GPU: the mesh and its collectives, the H-sharded primitives and
+# flagship
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.spatial",
+                    "parallel.spatial_model")
 
 
 def test_port_imports_without_jax_or_image_packages():
@@ -252,8 +256,8 @@ def test_port_imports_without_jax_or_image_packages():
     listed, last = out.stdout.strip().splitlines()[-2:]
     n, bad = last.split(" ", 1)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
-    # the train slice's, the drivers' and the zoo's modules are among
-    # those imported
+    # the train slice's, the drivers', the zoo's and the multi-GPU modules
+    # are among those imported
     pkg = "eyediseasesegmentation_tpu_torch."
     assert {pkg + m for m in TRAIN_MODULES + PIPELINE_MODULES
-            + ZOO_MODULES} <= set(listed.split()), listed
+            + ZOO_MODULES + PARALLEL_MODULES} <= set(listed.split()), listed
