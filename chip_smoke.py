@@ -17,7 +17,10 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    composition in bf16 (cuBLAS projection, einsum products, softmax: the
    plain version run in bf16), per shape and per forward; and at the vessel
    path's five shapes (the flagship at base_dim 19 for 608², L 38 and 19,
-   16 views), which take the wmma variant in fp32 and bf16;
+   16 views), which take the wmma variant in fp32 and the sm90 variant in
+   bf16 (padded to 64 and 32, the padded keys masked), with the wmma
+   kernel's bf16 time at the same shapes beside it (``_run(...,
+   force="wmma")``, also held to the plain version);
 3. kernels K3 (scSE-gated conv), K2 (decode pair, ``up_part0`` off and on) at
    the four main-path node shapes and K4 (plain conv) at two of them: fp32 at
    batch 1 (the wmma variants) and bf16 at batch 24 (the sm90 variants: TMA
@@ -71,7 +74,7 @@ flagship UnetPlusPlusStar, with weights made from a seed, with the decoder's
    1024²); the vessel driver's stages (the flagship at base_dim 19 on 4
    DRIVE-shaped images padded to 608², ``advanced_vessel``, one epoch, d4
    without resize scored by AUC-ROC, ``export_result_vessel``), whose K1
-   launches are all wmma; and ``tiled_predict`` and the multiscale tiled
+   launches are all sm90; and ``tiled_predict`` and the multiscale tiled
    legs of an fp32 base_dim-4 flagship, card against CPU on logits within
    ``SLICE_TOL`` × max|logit|. Launch counts are held per path (each path
    between a reset and a read of the counts);
@@ -206,7 +209,8 @@ K1_SHAPES = {
     "x_0_1": (64, 256, 64, 4, 16, 1536, 2),
 }
 # the same callers on the vessel path: the flagship at base_dim 19 for
-# 608² (L 38 and 19), 16 views (d4 TTA at batch 2): K1's wmma variant
+# 608² (L 38 and 19), 16 views (d4 TTA at batch 2): K1's sm90 variant, the
+# sequences padded to 64 and 32
 VESSEL_SCALE, VESSEL_VIEWS = 608, 16
 VESSEL_K1_SHAPES = {
     f"vessel_{name}": (L * VESSEL_SCALE // SCALE, cq, cv, H, dv,
@@ -466,17 +470,20 @@ def bound_ms(flops, nbytes):
 
 
 def phase_kernel(device):
-    """K1 against its plain version at the main-path shapes (fp32 on the
-    wmma variant, bf16 on the sm90 variant) and at the vessel path's (L 38
-    and 19: the wmma variant in both dtypes). Per-forward sums over the
-    12 calls of each path in bf16."""
+    """K1 against its plain version at the main-path shapes and at the
+    vessel path's (L 38 and 19, padded by the sm90 kernel): fp32 on the
+    wmma variant, bf16 on the sm90 variant. Per-forward sums over the 12
+    calls of each path in bf16; at the vessel shapes also the wmma kernel's
+    bf16 time (forced through ``_run``, which counts no launch)."""
     import torch
+    from eyediseasesegmentation_tpu_torch.ops import _build
     from eyediseasesegmentation_tpu_torch.ops import axial_attention as AK
 
     gen = torch.Generator(device=device).manual_seed(SEED)
+    lib = _build.load("axial_attention")
     worst = 0.0
-    paths = {name: dict.fromkeys(("ms", "plain_ms", "lib_ms", "flops",
-                                  "nbytes"), 0.0)
+    paths = {name: dict.fromkeys(("ms", "plain_ms", "lib_ms", "wmma_ms",
+                                  "flops", "nbytes"), 0.0)
              for name in ("main", "vessel")}
     shapes = {}
     for path, table in (("main", K1_SHAPES), ("vessel", VESSEL_K1_SHAPES)):
@@ -487,12 +494,11 @@ def phase_kernel(device):
                 dtype = getattr(torch, dname)
                 args, kw = k1_inputs(shape, dtype, device, gen)
                 # the variant is a function of dtype and shapes: wmma in
-                # fp32 and at L 19 / 38, sm90 in bf16 at the main path's
+                # fp32, sm90 in bf16 on both paths
                 var = AK.variant(dtype, L, H, kw["dkq"], dv, cq, cv or cq,
                                  [args[0].data_ptr(), args[1].data_ptr()],
                                  cv is None)
-                want_var = ("sm90" if dtype == torch.bfloat16
-                            and path == "main" else "wmma")
+                want_var = "sm90" if dtype == torch.bfloat16 else "wmma"
                 check(var == want_var, f"K1 {shape} {dname}: variant {var}")
                 before = getattr(AK, f"launches_{var}")
                 got = AK.axial_attention(*args, dtype=dtype, **kw)
@@ -525,33 +531,65 @@ def phase_kernel(device):
                     line.append(f"bf16 kernel {t_k:.4f} ms plain {t_p:.4f} "
                                 f"ms library {t_l:.4f} ms bound {b_ms:.4f} "
                                 f"ms ({b_by})")
-                    for k, v in zip(("ms", "plain_ms", "lib_ms", "flops",
-                                     "nbytes"), (t_k, t_p, t_l, f, nb)):
+                    t_w = 0.0
+                    if path == "vessel":    # the wmma kernel at the same call
+                        t_w, w_err = k1_wmma(lib, args, kw, ref)
+                        line.append(f"wmma kernel {t_w:.4f} ms "
+                                    f"max_abs_err={w_err:.3e}")
+                        check(w_err <= bound, f"K1 {shape} bf16 wmma: "
+                                              f"max_abs_err {w_err} > {bound}")
+                    for k, v in zip(("ms", "plain_ms", "lib_ms", "wmma_ms",
+                                     "flops", "nbytes"),
+                                    (t_k, t_p, t_l, t_w, f, nb)):
                         acc[k] += calls * v
                     shapes[shape] = {"kernel_ms": t_k, "plain_ms": t_p,
                                      "library_ms": t_l, "bound_ms": b_ms,
                                      "bound_by": b_by, "calls": calls,
                                      "variant": var}
+                    if path == "vessel":
+                        shapes[shape]["wmma_ms"] = t_w
                 del args, got, ref, ref_args
             print(" | ".join(line), flush=True)
         acc["bound_ms"], acc["bound_by"] = bound_ms(acc.pop("flops"),
                                                     acc.pop("nbytes"))
-        print(f"K1 per forward of the {path} path (12 calls, bf16, "
-              f"{'sm90' if path == 'main' else 'wmma'}): kernel "
-              f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, library "
-              f"{acc['lib_ms']:.4f} ms, bound {acc['bound_ms']:.4f} ms "
-              f"({acc['bound_by']})", flush=True)
+        wmma = (f", wmma kernel {acc['wmma_ms']:.4f} ms" if path == "vessel"
+                else "")
+        print(f"K1 per forward of the {path} path (12 calls, bf16, sm90): "
+              f"kernel {acc['ms']:.4f} ms{wmma}, plain {acc['plain_ms']:.4f} "
+              f"ms, library {acc['lib_ms']:.4f} ms, bound "
+              f"{acc['bound_ms']:.4f} ms ({acc['bound_by']})", flush=True)
     torch.cuda.empty_cache()
     main, vessel = paths["main"], paths["vessel"]
     return {"max_abs_err": worst, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["lib_ms"],
             "variant": "sm90", "shapes": shapes,
-            "vessel": {"variant": "wmma", "ms": vessel["ms"],
+            "vessel": {"variant": "sm90", "ms": vessel["ms"],
+                       "wmma_ms": vessel["wmma_ms"],
                        "plain_ms": vessel["plain_ms"],
                        "library_ms": vessel["lib_ms"],
                        "bound_ms": vessel["bound_ms"],
                        "bound_by": vessel["bound_by"]}}
+
+
+def k1_wmma(lib, args, kw, ref):
+    """(ms, max_abs_err against ``ref``) of K1's wmma kernel on a bf16 call,
+    forced through the op's marshalling (``_run``), which counts no launch."""
+    import torch
+    from eyediseasesegmentation_tpu_torch.ops import axial_attention as AK
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel():
+        rc, out, var = AK._run(lib, stream, *args, kw["heads"], kw["dkq"],
+                               kw["dv"], torch.bfloat16, force="wmma")
+        check(rc == 0 and var == "wmma", f"K1 wmma: CUDA error {rc}")
+        return out
+
+    got = kernel()
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    return time_ms(kernel, 10), err
 
 
 def conv_inputs(chs, cout, res, batch, dtype, device, gen):
@@ -1789,7 +1827,7 @@ def pipeline_vessel(root):
     train_counts, train_variants = read_counts(), read_variant_counts()
     check(train_counts["axial_attention"] > 0,
           f"vessel train_model: {train_counts}")
-    check_variants("vessel train_model", train_variants, "wmma")
+    check_variants("vessel train_model", train_variants, "sm90")
 
     model, run_cfg = load_model_for_inference(logdir)
     cfg = {**run_cfg, "test_img_path": str(img_dir),
@@ -1810,7 +1848,7 @@ def pipeline_vessel(root):
     forwards = len(prob_batches)
     check(counts == expected_counts("off", forwards),
           f"vessel test_tta: launches {counts} in {forwards} forwards")
-    check_variants("vessel test_tta", by_variant, "wmma")
+    check_variants("vessel test_tta", by_variant, "sm90")
     for probs, _ in prob_batches:
         check_probs("vessel test_tta", probs,
                     (TTA_BATCH, VESSEL_SCALE, VESSEL_SCALE))
@@ -3366,8 +3404,8 @@ def main(argv=None) -> int:
                   "tiled_pass_launches": pipe["tiled"]["axial_attention"],
                   "multiscale_launches":
                       pipe["multiscale"]["axial_attention"],
-                  "vessel_wmma_launches": pipe["vessel"]["axial_attention"],
-                  "vessel_train_model_wmma_launches":
+                  "vessel_sm90_launches": pipe["vessel"]["axial_attention"],
+                  "vessel_train_model_sm90_launches":
                       pipe["vessel_train_k1"],
                   "card_vs_cpu_wmma_launches": pipe["card_vs_cpu_k1"]},
               ensemble_launches=ens["ensemble"]["axial_attention"],

@@ -1,7 +1,9 @@
 // Fused eval axial attention for Hopper (sm_90a): K1's two kernels. The
-// bf16 path at the main-path shapes is the TMA + wgmma + mma.sync kernel of
-// axial_sm90.cuh (C entry axial_attention_sm90_fwd there); fp32, and shapes
-// that one does not take, run the first kernel below ("wmma" in
+// bf16 path, at any L from 1 to 64 (padded to 32 or 64, the padded keys
+// masked), is the TMA + wgmma + mma.sync kernel of axial_sm90.cuh (C entry
+// axial_attention_sm90_fwd there); fp32, and shapes that one does not take
+// (dv or head counts outside its set, channel counts that are not multiples
+// of 8, misaligned inputs), run the first kernel below ("wmma" in
 // ops/axial_attention.py `variant`), one thread block per length-L sequence.
 //
 // Replaces: eyediseasesegmentation_tpu/ops/axial_attention.py, `_kernel`

@@ -17,8 +17,15 @@
 // wmma re-staged x for every 128-column pass, its attention products ran on
 // the FMA units, and a 130 KB fp32 slab of logits kept one block per SM.
 // The design:
-//   - a block owns 64 rows: one sequence of 64, or two of 32 packed into
-//     one M tile of wgmma;
+//   - a block owns 64 rows: any L up to 64 is padded to Lp = 32 or 64, and
+//     a block takes S = 64 / Lp sequences (one of 64, or two of 32 packed
+//     into one M tile of wgmma). x lands through a 3-D tensor map (K, L, b)
+//     in boxes of (64, Lp, S), so the rows d >= L of a sequence and the
+//     sequences past b are the TMA's zero fill, never stale shared memory;
+//     the logits of keys j >= L are -inf before the row max (weight exactly
+//     0), the r tables are laid out at Lp with zeros past L, padded rows are
+//     computed but not stored, and a pass whose rows are all padding is
+//     skipped;
 //   - the projection [kq | v] = x . W runs on two consumer warpgroups, each
 //     a 64 x 64 tile of columns per pass (wgmma m64n64k16, both operands
 //     K-major with the 128-byte swizzle, fp32 sums in registers), fed by one
@@ -96,9 +103,9 @@ constexpr int kBar = 1;                     // named barrier of the consumers
 constexpr int kSmemLimit = 232448;          // bytes a block may use on sm_90
 
 // One product of the projection: head-major columns [col0, col0 + N) of
-// [kq | v] from x (rows, K) and W (K, N).
+// [kq | v] from x (b, L, K) and W (K, N).
 struct Seg {
-  CUtensorMap x;       // (K, rows) of x, box (64, 64), 128-byte swizzle
+  CUtensorMap x;       // (K, L, b) of x, box (64, Lp, 64 / Lp), 128-byte swizzle
   CUtensorMap w;       // (K, N) of W^T, box (64, 64), 128-byte swizzle
   const float* aff;    // (2, N): scale, then bias
   int N, col0, nchunk, npass, resident;
@@ -113,8 +120,8 @@ struct Plan {
   int attn, qz;              // the attention pass's areas
   int kq, v, bars, total;
   int ldkq, ldv;             // row strides of the kq and v tiles (values)
-  int lda;                   // a row's weights (32-bit words; head h at h * (L + 8) / 2)
-  int ldq, ldz, dvs;         // a row's logit terms (head h at h * L) and
+  int lda;                   // a row's weights (32-bit words; head h at h * (Lp + 8) / 2)
+  int ldq, ldz, dvs;         // a row's logit terms (head h at h * Lp) and
                              // merge terms (head h at h * dvs), floats
   int rg;                    // rows of one attention pass
 };
@@ -122,22 +129,23 @@ struct Plan {
 struct Params {
   Seg seg[2];
   int nseg;
-  const float* rqk;          // (L, L, 16): r_q[0..7][d][j], then r_k
-  const uint4* rvf;          // r_v's fragments: (L, dv / 16, L / 16, 32)
+  const float* rqk;          // (Lp, Lp, 16): r_q[0..7][d][j], then r_k
+  const uint4* rvf;          // r_v's fragments: (Lp, dv / 16, Lp / 16, 32)
   const float* lsc;          // (3 H,): the folded logit affine, per head
   const float* lbi;          // the scales of qr, kr, dots; their biases
   const float* osc;          // (2 H dv,): the folded output affine, kv's
   const float* obi;          // head-major channels, then out's
-  bf16* out;                 // (rows, H * dv)
-  int rows, heads;
+  bf16* out;                 // (b, L, H * dv)
+  int b, L, heads;           // sequences, their true length, heads
   Plan plan;
 };
 
 inline int pad_to(int x, int m, int r) { return x + ((r - x) % m + m) % m; }
 
-// The shared-memory plan (ops/axial_attention.py `sm90_smem` mirrors it).
-// Strides are padded so that the fragments' accesses fall on distinct banks.
-inline Plan make_plan(int L, int H, int dv, const Seg* seg, int nseg) {
+// The shared-memory plan at the padded length Lp (ops/axial_attention.py
+// `sm90_smem` mirrors it). Strides are padded so that the fragments'
+// accesses fall on distinct banks.
+inline Plan make_plan(int Lp, int H, int dv, const Seg* seg, int nseg) {
   Plan q{};
   int resident = 0, tiles = 1;
   bool stream = false;
@@ -155,8 +163,8 @@ inline Plan make_plan(int L, int H, int dv, const Seg* seg, int nseg) {
   q.stage = q.xstream + tiles * kTile;
   const int proj = resident + kStages * q.stage;
   q.rg = 16 * (8 / H);
-  q.lda = pad_to(H * (L + 8) / 2, 32, 4);
-  q.ldq = pad_to(H * L, 32, 8);
+  q.lda = pad_to(H * (Lp + 8) / 2, 32, 4);
+  q.ldq = pad_to(H * Lp, 32, 8);
   q.dvs = dv + 4;
   q.ldz = pad_to(H * q.dvs, 32, 8);
   q.attn = 0;
@@ -188,10 +196,11 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
 
 // The producer warp's lane 0: every box of every chunk, in the order the
 // consumers take them, into the ring (x into the resident area on the first
-// pass of a product that takes several).
+// pass of a product that takes several). x's box is the block's sequences
+// from seq0 on.
 __device__ __forceinline__ void produce(const Params& p, unsigned char* base,
                                         uint64_t* full, uint64_t* empty,
-                                        int row0) {
+                                        int seq0) {
   const Plan& q = p.plan;
   int it = 0;
   for (int s = 0; s < p.nseg; ++s) {
@@ -208,8 +217,8 @@ __device__ __forceinline__ void produce(const Params& p, unsigned char* base,
         sm90::mbar_arrive_expect_tx(&full[st],
                                     (tiles + (loadx ? 1 : 0)) * kTile);
         if (loadx)
-          sm90::tma_load_2d(g.resident ? base + kc * kTile : stage, &g.x,
-                            &full[st], kc * kKC, row0);
+          sm90::tma_load_3d(g.resident ? base + kc * kTile : stage, &g.x,
+                            &full[st], kc * kKC, 0, seq0);
         for (int j = 0; j < tiles; ++j)
           sm90::tma_load_2d(stage + q.xstream + j * kTile, &g.w, &full[st],
                             kc * kKC, n0 + j * kNT);
@@ -283,16 +292,17 @@ __device__ __forceinline__ void project(const Params& p, unsigned char* base,
   }
 }
 
-// The attention of the block's 64 rows, in passes of rg rows: warp w takes
-// head w % H on the 16 rows 16 (w / H) of a pass.
-template <int L, int DV>
+// The attention of the block's 64 rows (tile row r is position r % LP of
+// sequence seq0 + r / LP), in passes of rg rows: warp w takes head w % H on
+// the 16 rows 16 (w / H) of a pass. A pass lies in one sequence (rg <= LP).
+template <int LP, int DV>
 __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
                                        const bf16* KQ, const bf16* V,
-                                       int row0) {
-  constexpr int NT = L / 8, KT = L / 16, DT = DV / 8, MI = (DV + 15) / 16;
-  constexpr int AH = (L + 8) / 2;  // words of one head's weights in a row
+                                       int seq0) {
+  constexpr int NT = LP / 8, KT = LP / 16, DT = DV / 8, MI = (DV + 15) / 16;
+  constexpr int AH = (LP + 8) / 2;  // words of one head's weights in a row
   const Plan& q = p.plan;
-  const int H = p.heads, nv = H * DV;
+  const int H = p.heads, nv = H * DV, L = p.L;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
   const int h = warp % H, mt = warp / H;
@@ -301,31 +311,33 @@ __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
   const float ls2 = p.lsc[3 * h + 2];
 
   for (int r0 = 0; r0 < kM; r0 += q.rg) {
+    // rows that are all padding, or a sequence past b: nothing to store
+    if (r0 % LP >= L || seq0 + r0 / LP >= p.b) continue;
     // 1. the logits' fp32 terms of every head, ls0 qr + ls1 kr + bias, at
     //    QZ[rr][h][j]: each (d, j) entry of r_q and r_k is read once; at dv
     //    >= 32 (one block an SM) a thread loads the entries of kPos
     //    positions before it uses them
     constexpr int kPos = DV >= 32 ? 4 : 1;
-    for (int e0 = tid; e0 < q.rg * L; e0 += kPos * kConsumers) {
+    for (int e0 = tid; e0 < q.rg * LP; e0 += kPos * kConsumers) {
       float4 r4[kPos][4];
 #pragma unroll
       for (int u = 0; u < kPos; ++u) {
         const int e = e0 + u * kConsumers;
         const float4* src = reinterpret_cast<const float4*>(
-            p.rqk + (static_cast<size_t>((r0 + e / L) % L) * L + e % L) * 16);
+            p.rqk + (static_cast<size_t>((r0 + e / LP) % LP) * LP + e % LP) * 16);
 #pragma unroll
         for (int v = 0; v < 4; ++v)
-          r4[u][v] = e < q.rg * L ? src[v] : make_float4(0.f, 0.f, 0.f, 0.f);
+          r4[u][v] = e < q.rg * LP ? src[v] : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int u = 0; u < kPos; ++u) {
         const int e = e0 + u * kConsumers;
-        const int rr = e / L, j = e % L, m = r0 + rr;
+        const int rr = e / LP, j = e % LP, m = r0 + rr;
         const float rq[8] = {r4[u][0].x, r4[u][0].y, r4[u][0].z, r4[u][0].w,
                              r4[u][1].x, r4[u][1].y, r4[u][1].z, r4[u][1].w};
         const float rk[8] = {r4[u][2].x, r4[u][2].y, r4[u][2].z, r4[u][2].w,
                              r4[u][3].x, r4[u][3].y, r4[u][3].z, r4[u][3].w};
-        for (int hh = 0; hh < H && e < q.rg * L; ++hh) {
+        for (int hh = 0; hh < H && e < q.rg * LP; ++hh) {
           const bf16* qk = KQ + m * q.ldkq + 16 * hh;
           float qf[8], kf[8];
           unpack8(*reinterpret_cast<const uint4*>(qk), qf);
@@ -337,7 +349,7 @@ __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
             kr = fmaf(kf[i], rk[i], kr);
           }
           const float* lb = p.lbi + 3 * hh;
-          QZ[rr * q.ldq + hh * L + j] = p.lsc[3 * hh] * qr +
+          QZ[rr * q.ldq + hh * LP + j] = p.lsc[3 * hh] * qr +
                                         p.lsc[3 * hh + 1] * kr +
                                         (lb[0] + lb[1] + lb[2]);
         }
@@ -348,8 +360,8 @@ __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
     // 2. head h on rows m0 .. m0 + 15 (one sequence, keys from row kb):
     //    dots on the tensor cores, the softmax in the fragment's registers,
     //    the weights rounded to bf16 into pa (out's A operand) and At (kv's
-    //    B operand)
-    const int ml = 16 * mt, m0 = r0 + ml, kb = (m0 / L) * L;
+    //    B operand); keys j >= L are padding, with logits -inf
+    const int ml = 16 * mt, m0 = r0 + ml, kb = (m0 / LP) * LP;
     const bf16* qrow = KQ + (m0 + g) * q.ldkq + 16 * h + 2 * c;
     const uint32_t qa0 = *reinterpret_cast<const uint32_t*>(qrow);
     const uint32_t qa1 = *reinterpret_cast<const uint32_t*>(qrow + 8 * q.ldkq);
@@ -361,7 +373,7 @@ __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
           KQ + (kb + 8 * nt + g) * q.ldkq + 16 * h + 8 + 2 * c);
       sm90::mma_m16n8k8_bf16(sc[nt], qa0, qa1, kb0);
     }
-    const float* qz0 = QZ + (ml + g) * q.ldq + h * L + 2 * c;
+    const float* qz0 = QZ + (ml + g) * q.ldq + h * LP + 2 * c;
     const float* qz1 = qz0 + 8 * q.ldq;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -372,6 +384,11 @@ __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
       sc[nt][1] = ls2 * sc[nt][1] + t0.y;
       sc[nt][2] = ls2 * sc[nt][2] + t1.x;
       sc[nt][3] = ls2 * sc[nt][3] + t1.y;
+      if (L < LP) {
+        const int j = 8 * nt + 2 * c;
+        if (j >= L) sc[nt][0] = sc[nt][2] = -INFINITY;
+        if (j + 1 >= L) sc[nt][1] = sc[nt][3] = -INFINITY;
+      }
       mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(sc[nt][2], sc[nt][3]));
     }
@@ -425,7 +442,7 @@ __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
 #pragma unroll
       for (int u = 0; u < kItems; ++u) {
         const int item = it0 + u * kCWarps;
-        const int d = (r0 + item / MI) % L, mi = item % MI;
+        const int d = (r0 + item / MI) % LP, mi = item % MI;
         const uint4* src =
             p.rvf + (static_cast<size_t>(d) * MI + mi) * KT * 32 + lane;
 #pragma unroll
@@ -479,12 +496,13 @@ __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
       const float s0 = p.osc[nv + h * DV + i], s1 = p.osc[nv + h * DV + i + 1];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int rr = ml + g + 8 * half, grow = row0 + r0 + rr;
+        const int rr = ml + g + 8 * half, d = (r0 + rr) % LP;
         const float2 z =
             *reinterpret_cast<const float2*>(QZ + rr * q.ldz + h * q.dvs + i);
-        if (grow < p.rows)
-          *reinterpret_cast<uint32_t*>(p.out + static_cast<size_t>(grow) * nv +
-                                       h * DV + i) =
+        if (d < L)   // the pass's sequence is below b
+          *reinterpret_cast<uint32_t*>(
+              p.out +
+              (static_cast<size_t>(seq0 + r0 / LP) * L + d) * nv + h * DV + i) =
               pack2(z.x + s0 * o[dt][2 * half], z.y + s1 * o[dt][2 * half + 1]);
       }
     }
@@ -498,7 +516,7 @@ __device__ __forceinline__ void attend(const Params& p, unsigned char* base,
 template <int DV>
 constexpr int kBlocksPerSM = DV <= 16 ? 2 : 1;
 
-template <int L, int DV>
+template <int LP, int DV>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM<DV>)
     axial_sm90_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -510,7 +528,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM<DV>)
   bf16* V = reinterpret_cast<bf16*>(base + q.v);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + q.bars);
   uint64_t* empty = full + kStages;
-  const int row0 = blockIdx.x * kM;
+  const int seq0 = blockIdx.x * (kM / LP);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&full[s], 1);
@@ -520,23 +538,27 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM<DV>)
   }
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
-    if (threadIdx.x == kConsumers) produce(p, base, full, empty, row0);
+    if (threadIdx.x == kConsumers) produce(p, base, full, empty, seq0);
     return;
   }
   project(p, base, full, empty, KQ, V);
   sm90::bar_sync(kBar, kConsumers);  // the tiles are complete, the ring free
-  attend<L, DV>(p, base, KQ, V, row0);
+  attend<LP, DV>(p, base, KQ, V, seq0);
 }
+
+// The padded length of a sequence: 32 or 64.
+inline int padded_len(int L) { return L <= 32 ? 32 : 64; }
 
 // Where arrange_kernel puts the weights in the scratch buffer (bytes, each
 // part 16-byte aligned): per product W^T (N, K) bf16 and its affine (2, N)
-// fp32; rqk (L, L, 16) fp32; r_v's fragments.
+// fp32; rqk (Lp, Lp, 16) fp32; r_v's fragments.
 struct Scratch {
   size_t wt[2], aff[2], rqk, rvf, total;
 };
 
 inline Scratch scratch_plan(int L, int cq, int cv, int heads, int dv,
                             bool self_attn) {
+  const int Lp = padded_len(L);
   const auto up16 = [](size_t x) { return (x + 15) / 16 * 16; };
   const int nkq = 16 * heads, nv = heads * dv;
   const int K[2] = {cq, self_attn ? 0 : cv};
@@ -550,9 +572,9 @@ inline Scratch scratch_plan(int L, int cq, int cv, int heads, int dv,
     at += up16(static_cast<size_t>(N[s]) * 2 * 4);
   }
   sc.rqk = at;
-  at += static_cast<size_t>(L) * L * 16 * 4;
+  at += static_cast<size_t>(Lp) * Lp * 16 * 4;
   sc.rvf = at;
-  at += static_cast<size_t>(L) * ((dv + 15) / 16) * 16 * L * 2;
+  at += static_cast<size_t>(Lp) * ((dv + 15) / 16) * 16 * Lp * 2;
   sc.total = at;
   return sc;
 }
@@ -566,21 +588,22 @@ struct ArrangeParams {
   int K[2], N[2], col0[2];
   const float* rq;        // (8, L, L)
   const float* rk;
-  float* rqk;             // (L, L, 16)
+  float* rqk;             // (Lp, Lp, 16), zeros past L
   const float* rv;        // (dv, L, L)
   uint4* rvf;
-  int L, H, dv, nkq, n[4];  // work items of the four jobs
+  int L, Lp, H, dv, nkq, n[4];  // work items of the four jobs
 };
 
 // Job blockIdx.x / K1_ARRANGE_BLOCKS: 0, 1 W^T and the affine of that
 // product, one element a step, with column c of the head-major order read from column (c % 16)
 // * H + c / 16 of kq, or (c % dv) * H + c / dv of v; 2 rqk; 3 r_v's
-// fragments: for each query position d, A_d[i][j] = bf16(r_v[i][d][j]) (i
-// past dv zero) in 16 x 16 tiles, each in mma.sync m16n8k16's register
+// fragments: for each query position d < Lp, A_d[i][j] = bf16(r_v[i][d][j])
+// (i past dv zero) in 16 x 16 tiles, each in mma.sync m16n8k16's register
 // order: rvf[d][i / 16][j / 16][lane] holds rows g, g + 8 and columns 2c,
 // 2c + 1, 2c + 8, 2c + 9 of the tile as a0..a3 (g = lane / 4, c = lane % 4).
+// Both tables are laid out at Lp, with zeros at d or j past L.
 __global__ void arrange_kernel(const ArrangeParams a) {
-  const int job = blockIdx.x / K1_ARRANGE_BLOCKS, L = a.L;
+  const int job = blockIdx.x / K1_ARRANGE_BLOCKS, L = a.L, Lp = a.Lp;
   const int step = K1_ARRANGE_BLOCKS * blockDim.x;
   for (int t = (blockIdx.x % K1_ARRANGE_BLOCKS) * blockDim.x + threadIdx.x;
        t < a.n[job]; t += step) {
@@ -596,11 +619,12 @@ __global__ void arrange_kernel(const ArrangeParams a) {
         a.aff[job][a.N[job] + r] = a.bias[job][src];
       }
     } else if (job == 2) {
-      const int i = t % 16, j = (t / 16) % L, d = t / (16 * L);
-      a.rqk[t] = i < 8 ? a.rq[(i * L + d) * L + j]
-                       : a.rk[((i - 8) * L + d) * L + j];
+      const int i = t % 16, j = (t / 16) % Lp, d = t / (16 * Lp);
+      a.rqk[t] = d >= L || j >= L ? 0.f
+                 : i < 8          ? a.rq[(i * L + d) * L + j]
+                                  : a.rk[((i - 8) * L + d) * L + j];
     } else {
-      const int MI = (a.dv + 15) / 16, KT = L / 16;
+      const int MI = (a.dv + 15) / 16, KT = Lp / 16;
       const int lane = t % 32, kt = (t / 32) % KT, mi = (t / (32 * KT)) % MI;
       const int d = t / (32 * KT * MI), g = lane / 4, c = lane % 4;
       uint32_t w[4];
@@ -608,33 +632,58 @@ __global__ void arrange_kernel(const ArrangeParams a) {
       for (int r = 0; r < 4; ++r) {
         const int i = 16 * mi + g + 8 * (r % 2);
         const int j = 16 * kt + 2 * c + 8 * (r / 2);
-        const float* src = a.rv + (static_cast<size_t>(i) * L + d) * L + j;
-        w[r] = i < a.dv ? pack2(src[0], src[1]) : 0u;
+        const size_t at = (static_cast<size_t>(i) * L + d) * L + j;
+        const bool row = i < a.dv && d < L;
+        w[r] = pack2(row && j < L ? a.rv[at] : 0.f,
+                     row && j + 1 < L ? a.rv[at + 1] : 0.f);
       }
       a.rvf[t] = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }
 
-// A (rows, K) bf16 matrix, read by 64 x 64 boxes with the 128-byte swizzle;
+// A bf16 tensor of `rank` dimensions (dims[0] contiguous), read by boxes of
+// 64 values along dims[0] (one 128-byte line) with the 128-byte swizzle;
 // coordinates past its edges read zeros.
-inline bool encode_rows(CUtensorMap* m, const void* base, int K, int rows) {
+inline bool encode_boxes(CUtensorMap* m, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint32_t* box) {
   const sm90::EncodeTiled encode = sm90::encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
-  const cuuint32_t box[2] = {kKC, kM};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  cuuint64_t strides[2];
+  for (int i = 1; i < rank; ++i)
+    strides[i - 1] = (i == 1 ? 2 : strides[i - 2]) * dims[i - 1];
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int L, int DV>
+// W^T (N, K), by 64 x 64 boxes.
+inline bool encode_rows(CUtensorMap* m, const void* base, int K, int rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[2] = {kKC, kM};
+  return encode_boxes(m, base, 2, dims, box);
+}
+
+// x (b, L, K), by boxes of 64 x Lp x (64 / Lp): the rows d >= L of each
+// sequence and the sequences past b are zeros.
+inline bool encode_seqs(CUtensorMap* m, const void* base, int K, int L,
+                        int b) {
+  const int Lp = padded_len(L);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint32_t box[3] = {kKC, static_cast<cuuint32_t>(Lp),
+                             static_cast<cuuint32_t>(kM / Lp)};
+  return encode_boxes(m, base, 3, dims, box);
+}
+
+template <int LP, int DV>
 cudaError_t launch(const Params& p, unsigned grid, cudaStream_t stream) {
-  void (*kernel)(const Params) = axial_sm90_kernel<L, DV>;
+  void (*kernel)(const Params) = axial_sm90_kernel<LP, DV>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.plan.total);
   if (err != cudaSuccess) return err;
@@ -648,14 +697,14 @@ inline cudaError_t launch_arrange(const ArrangeParams& a,
   return cudaGetLastError();
 }
 
-template <int L>
+template <int LP>
 cudaError_t launch_dv(const Params& p, int dv, unsigned grid,
                       cudaStream_t stream) {
   switch (dv) {
-    case 8: return launch<L, 8>(p, grid, stream);
-    case 16: return launch<L, 16>(p, grid, stream);
-    case 32: return launch<L, 32>(p, grid, stream);
-    case 64: return launch<L, 64>(p, grid, stream);
+    case 8: return launch<LP, 8>(p, grid, stream);
+    case 16: return launch<LP, 16>(p, grid, stream);
+    case 32: return launch<LP, 32>(p, grid, stream);
+    case 64: return launch<LP, 64>(p, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -676,10 +725,11 @@ extern "C" int axial_attention_sm90_scratch(int L, int cq, int cv, int heads,
 // W and the affines fp32, x bf16. rq, rk (8, L, L) and rv (dv, L, L) fp32;
 // scratch of axial_attention_sm90_scratch bytes; lsc, lbi (3 heads,) and
 // osc, obi (2 heads dv,) fp32, the folded logit and output affines; out (b,
-// L, heads * dv), head-major. Takes L of 32 or 64, dkq 8, 4 or 8 heads, dv
+// L, heads * dv), head-major. Takes L of 1 to 64, dkq 8, 4 or 8 heads, dv
 // of 8, 16, 32 or 64, cq and cv multiples of 8, 16-byte-aligned x, scratch
 // and out, and a block that fits in shared memory; cudaErrorInvalidValue
-// for the rest. Returns the launches' cudaError_t.
+// for the rest. Any L from 1 to 64 runs padded to Lp = 32 or 64, 64 / Lp
+// sequences a block. Returns the launches' cudaError_t.
 extern "C" int axial_attention_sm90_fwd(
     const void* x0, const void* w0, const void* s0, const void* b0,
     const void* x1, const void* w1, const void* s1, const void* b1,
@@ -691,14 +741,14 @@ extern "C" int axial_attention_sm90_fwd(
   const auto aligned = [](const void* q) {
     return q != nullptr && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
-  if (b < 1 || (L != 32 && L != 64) || (heads != 4 && heads != 8) ||
+  if (b < 1 || L < 1 || L > 64 || (heads != 4 && heads != 8) ||
       (dv != 8 && dv != 16 && dv != 32 && dv != 64) || cq % 8 != 0 ||
       cv % 8 != 0 || !aligned(x0) || !aligned(scratch) || !aligned(out) ||
       (!self_attn && !aligned(x1)) ||
-      static_cast<long long>(b) * L > 2147483647LL - kM) {
+      static_cast<long long>(b) * 64 > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nkq = 16 * heads, nv = heads * dv, rows = b * L;
+  const int nkq = 16 * heads, nv = heads * dv, Lp = padded_len(L);
   const Scratch sc = scratch_plan(L, cq, cv, heads, dv, self_attn != 0);
   unsigned char* buf = static_cast<unsigned char*>(scratch);
   Params p{};
@@ -727,7 +777,7 @@ extern "C" int axial_attention_sm90_fwd(
     g.nchunk = (K[s] + kKC - 1) / kKC;
     g.npass = (g.N + kWG * kNT - 1) / (kWG * kNT);
     g.resident = g.npass > 1;
-    if (!encode_rows(&g.x, xs[s], K[s], rows) ||
+    if (!encode_seqs(&g.x, xs[s], K[s], L, b) ||
         !encode_rows(&g.w, a.wt[s], K[s], g.N))
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -737,11 +787,12 @@ extern "C" int axial_attention_sm90_fwd(
   a.rv = static_cast<const float*>(rv);
   a.rvf = reinterpret_cast<uint4*>(buf + sc.rvf);
   a.L = L;
+  a.Lp = Lp;
   a.H = heads;
   a.dv = dv;
   a.nkq = nkq;
-  a.n[2] = L * L * 16;
-  a.n[3] = L * ((dv + 15) / 16) * (L / 16) * 32;
+  a.n[2] = Lp * Lp * 16;
+  a.n[3] = Lp * ((dv + 15) / 16) * (Lp / 16) * 32;
   p.rqk = a.rqk;
   p.rvf = a.rvf;
   p.lsc = static_cast<const float*>(lsc);
@@ -749,15 +800,17 @@ extern "C" int axial_attention_sm90_fwd(
   p.osc = static_cast<const float*>(osc);
   p.obi = static_cast<const float*>(obi);
   p.out = static_cast<bf16*>(out);
-  p.rows = rows;
+  p.b = b;
+  p.L = L;
   p.heads = heads;
-  p.plan = make_plan(L, heads, dv, p.seg, p.nseg);
+  p.plan = make_plan(Lp, heads, dv, p.seg, p.nseg);
   if (p.plan.total > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>((rows + kM - 1) / kM);
+  const int per_block = kM / Lp;
+  const unsigned grid = static_cast<unsigned>((b + per_block - 1) / per_block);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_arrange(a, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = L == 32 ? launch_dv<32>(p, dv, grid, st)
-                : launch_dv<64>(p, dv, grid, st);
+  err = Lp == 32 ? launch_dv<32>(p, dv, grid, st)
+                 : launch_dv<64>(p, dv, grid, st);
   return static_cast<int>(err);
 }

@@ -79,6 +79,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA tiled load of the box at (c0, c1, c2) of a 3-D tensor map; as above.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // TMA tiled load of the box at (c0, c1) of a 2-D tensor map; as above.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {

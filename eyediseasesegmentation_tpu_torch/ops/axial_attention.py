@@ -15,12 +15,13 @@ Sequences are (b, L, C), as in the JAX package. A tensor on the CPU takes
 ``csrc/axial_attention.cu`` (built on first use) or raises.
 
 Two kernels, chosen by :func:`variant` from the dtype and the shapes alone:
-``"sm90"`` (bf16, L of 32 or 64, dkq 8, 4 or 8 heads, dv of 8, 16, 32 or 64,
-channel counts of multiples of 8, 16-byte-aligned inputs, a block that fits
-in shared memory: ``csrc/axial_sm90.cuh``, the projection on TMA + wgmma and
-the attention products on ``mma.sync``) and ``"wmma"`` (fp32, and other
-shapes: the first kernel, wmma projection and attention on the FMA units). A
-non-zero return code raises; nothing falls back to the other kernel.
+``"sm90"`` (bf16, any L from 1 to 64, dkq 8, 4 or 8 heads, dv of 8, 16, 32
+or 64, channel counts of multiples of 8, 16-byte-aligned inputs, a block that
+fits in shared memory: ``csrc/axial_sm90.cuh``, the projection on TMA + wgmma
+and the attention products on ``mma.sync``; sequences padded to 32 or 64
+with the padded keys masked) and ``"wmma"`` (fp32, and other shapes: the
+first kernel, wmma projection and attention on the FMA units). A non-zero
+return code raises; nothing falls back to the other kernel.
 
 Both kernels keep r_q and r_k in fp32 and round r_v and the attention
 weights to the compute dtype, as the Pallas kernel does; the plain version,
@@ -108,7 +109,9 @@ def _pad_to(x: int, m: int, r: int) -> int:
 def sm90_smem(L: int, heads: int, dv: int, cq: int, cv: int,
               self_attn: bool) -> int:
     """Bytes of dynamic shared memory of one block of the sm90 kernel
-    (``k1::plan`` in ``csrc/axial_sm90.cuh``, which the launch checks)."""
+    (``k1::make_plan`` in ``csrc/axial_sm90.cuh``, which the launch checks),
+    sized by the length the kernel pads L to (``k1::padded_len``)."""
+    Lp = 32 if L <= 32 else 64
     nkq, nv = 16 * heads, heads * dv
     segs = [(cq, nkq + nv)] if self_attn else [(cq, nkq), (cv, nv)]
     per_pass = _S90_WG * _S90_NT
@@ -121,8 +124,8 @@ def sm90_smem(L: int, heads: int, dv: int, cq: int, cv: int,
         tiles = max(tiles, min(_S90_WG, -(-n // _S90_NT)))
     proj = resident + _S90_STAGES * _S90_TILE * (tiles + int(stream))
     rows = 16 * (8 // heads)          # rows of one attention pass
-    attn = rows * _pad_to(heads * (L + 8) // 2, 32, 4) * 4
-    qrk = rows * _pad_to(heads * L, 32, 8) * 4
+    attn = rows * _pad_to(heads * (Lp + 8) // 2, 32, 4) * 4
+    qrk = rows * _pad_to(heads * Lp, 32, 8) * 4
     z = rows * _pad_to(heads * (dv + 4), 32, 8) * 4
     region = -(-max(proj, attn + max(qrk, z)) // 1024) * 1024
     tiles_kq_v = _S90_M * (nkq + 8) * 2 + _S90_M * (nv + 8) * 2
@@ -131,11 +134,13 @@ def sm90_smem(L: int, heads: int, dv: int, cq: int, cv: int,
 
 def variant(dtype, L: int, heads: int, dkq: int, dv: int, cq: int, cv: int,
             data_ptrs, self_attn: bool) -> str:
-    """The kernel that takes these shapes: ``"sm90"`` for bf16 with L of 32
-    or 64, dkq 8, 4 or 8 heads, dv of 8, 16, 32 or 64, channel counts of
+    """The kernel that takes these shapes: ``"sm90"`` for bf16 with any L
+    from 1 to 64 (padded to 32 or 64 in the kernel, the padded keys
+    masked), dkq 8, 4 or 8 heads, dv of 8, 16, 32 or 64, channel counts of
     multiples of 8 and 16-byte-aligned inputs (what the TMA reads), where
-    one block fits in shared memory; else ``"wmma"``."""
-    if (dtype == torch.bfloat16 and L in (32, 64) and dkq == 8
+    one block fits in shared memory; else ``"wmma"`` (fp32, L past 64 and
+    the other shapes)."""
+    if (dtype == torch.bfloat16 and 1 <= L <= _MAX_L and dkq == 8
             and heads in (4, 8) and dv in (8, 16, 32, 64)
             and cq % 8 == 0 and cv % 8 == 0
             and all(p % 16 == 0 for p in data_ptrs)

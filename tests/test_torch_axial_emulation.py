@@ -9,11 +9,15 @@ ldmatrix at the positions of the PTX fragment layouts) and drives it through
 the op's own marshalling (``_run``) on CPU tensors, against the plain
 version. It checks index arithmetic, masking, staging and the rounding points
 at small shapes: L = 32 (two sequences a block, an odd count of them) and
-64, self- and cross-attention, 4 and 8 heads, dv 8, 16 and 64, products of
-one and of several column passes (the resident x), K not a multiple of 64
-(the TMA's zero fill); it says nothing of what nvcc accepts, of speed, or of
-the memory model. Tolerance: 3e-2 of max|ref|, against the plain version in
-fp32 on the same bf16 inputs, as on the GPU. Skips without g++ (C++20).
+64, and lengths the kernel pads (38 and 50 to 64; 19 and 7 to 32, two
+sequences a block, an odd count of them: the padded rows are the TMA's zero
+fill, the padded keys masked), self- and cross-attention, 4 and 8 heads, dv
+8, 16, 32 and 64, products of one and of several column passes (the
+resident x), K not a multiple of 64 (the TMA's zero fill), and that the
+wrapper's shared-memory plan is the kernel's; it says nothing of what nvcc
+accepts, of speed, or of the memory model. Tolerance: 3e-2 of max|ref|,
+against the plain version in fp32 on the same bf16 inputs, as on the GPU.
+Skips without g++ (C++20).
 Imports no JAX.
 """
 
@@ -37,6 +41,11 @@ SHAPES = {
     "self_l32_h8_dv64": (3, 32, 64, None, 8, 64),     # 5 passes, odd b
     "cross_l32_h4_dv16": (3, 32, 80, 24, 4, 16),
     "cross_l64_h4_dv8": (1, 64, 136, 32, 4, 8),       # 3 chunks of x_q
+    # padded lengths
+    "self_l38_h8_dv16": (2, 38, 96, None, 8, 16),     # to 64, 2 passes
+    "cross_l19_h4_dv16": (3, 19, 80, 24, 4, 16),      # to 32, odd b
+    "cross_l50_h8_dv8": (1, 50, 72, 40, 8, 8),        # to 64
+    "self_l7_h4_dv32": (3, 7, 64, None, 4, 32),       # to 32, 2 passes
 }
 
 
@@ -59,6 +68,7 @@ def lib(tmp_path_factory):
         fn = getattr(lib, name)
         fn.argtypes = _build._KERNELS["axial_attention"][1][name]
         fn.restype = ctypes.c_int
+    lib.emu_last_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -94,6 +104,10 @@ def test_emulated_axial_sm90_matches_plain(lib, shape):
     rc, got, var = AK._run(lib, None, *args, kw["heads"], kw["dkq"], kw["dv"],
                            torch.bfloat16)
     assert rc == 0 and var == "sm90"
+    # the wrapper's shared-memory plan is the kernel's, byte for byte
+    _, L, cq, cv, H, dv = SHAPES[shape]
+    assert lib.emu_last_smem() == AK.sm90_smem(L, H, dv, cq, cv or cq,
+                                               cv is None)
     ref_args = list(args)
     ref_args[0], ref_args[1] = args[0].float(), args[1].float()
     ref = AK.axial_attention_reference(*ref_args, dtype=torch.float32, **kw)
@@ -103,16 +117,25 @@ def test_emulated_axial_sm90_matches_plain(lib, shape):
 
 
 def test_emulated_axial_sm90_refuses_what_it_cannot_take(lib):
-    args, kw = _inputs((2, 48, 64, 32, 4, 16))     # L = 48: 32 or 64 only
-    assert AK.variant(torch.bfloat16, 48, 4, 8, 16, 64, 32, [0, 0],
+    args, kw = _inputs((2, 80, 64, 32, 4, 16))     # L = 80: 64 at most
+    assert AK.variant(torch.bfloat16, 80, 4, 8, 16, 64, 32, [0, 0],
                       False) == "wmma"
-    rc, _, var = AK._run(lib, None, *args, kw["heads"], kw["dkq"], kw["dv"],
-                         torch.bfloat16, force="sm90")
-    assert var == "sm90" and rc != 0
+    with pytest.raises(ValueError, match="L <= 64"):
+        AK._run(lib, None, *args, kw["heads"], kw["dkq"], kw["dv"],
+                torch.bfloat16, force="sm90")
+    # the library refuses it too, past the wrapper's check
+    x_q, x_v, w_kq, w_v, kq_aff, v_aff, r_q, r_k, r_v, l_aff, o_aff = args
+    out = torch.empty(2, 80, 4 * 16, dtype=torch.bfloat16)
+    scratch = torch.empty(1 << 16, dtype=torch.uint8)
+    ptrs = [t.data_ptr() for t in (x_q, w_kq, *kq_aff, x_v, w_v, *v_aff, r_q,
+                                   r_k, r_v, scratch, *l_aff, *o_aff, out)]
+    assert lib.axial_attention_sm90_fwd(*ptrs, 2, 80, 64, 32, 4, 16, 0,
+                                        None) != 0
 
 
 # (L, Cq, Cv or None for self-attention, heads, dv) of K1's five main-path
-# callers (chip_smoke.py K1_SHAPES)
+# callers (chip_smoke.py K1_SHAPES), and the same callers on the vessel path
+# (the flagship at 608²: L 38 and 19; chip_smoke.py VESSEL_K1_SHAPES)
 MAIN_SHAPES = {
     "layer4_first": (64, 512, None, 8, 64),
     "layer4_shared": (32, 512, None, 8, 64),
@@ -120,12 +143,19 @@ MAIN_SHAPES = {
     "x_1_1": (64, 1024, 32, 4, 8),
     "x_0_1": (64, 256, 64, 4, 16),
 }
+VESSEL_SHAPES = {
+    "vessel_layer4_first": (38, 512, None, 8, 64),
+    "vessel_layer4_shared": (19, 512, None, 8, 64),
+    "vessel_x_0_0": (19, 2048, 64, 4, 16),
+    "vessel_x_1_1": (38, 1024, 32, 4, 8),
+    "vessel_x_0_1": (38, 256, 64, 4, 16),
+}
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape", list(MAIN_SHAPES))
+@pytest.mark.parametrize("shape", [*MAIN_SHAPES, *VESSEL_SHAPES])
 def test_axial_variant_of_main_path_shapes(shape, dtype):
-    L, cq, cv, H, dv = MAIN_SHAPES[shape]
+    L, cq, cv, H, dv = {**MAIN_SHAPES, **VESSEL_SHAPES}[shape]
     dt = getattr(torch, dtype)
     want = "sm90" if dt == torch.bfloat16 else "wmma"
     assert AK.variant(dt, L, H, 8, dv, cq, cv or cq, [0, 64],

@@ -26,10 +26,12 @@ from eyediseasesegmentation_tpu_torch.ops import decode_pair as PK
 from eyediseasesegmentation_tpu_torch.ops import scse_conv as SK
 
 # (b, L, Cq, Cv or None for self-attention, heads, dv): the five main-path
-# callers of K1 with fewer sequences; two shapes of the sm90 variant's edges
-# (an odd count of L = 32 sequences, so the last block holds one; a K that is
-# not a multiple of 64, which the TMA fills with zeros); and two ragged
-# shapes that exercise the wmma kernel's row, depth and column masking; the
+# callers of K1 with fewer sequences, and the same five on the vessel path
+# (L 38 and 19, which the sm90 variant pads to 64 and 32); three shapes of
+# the sm90 variant's edges (an odd count of L = 32 or L = 19 sequences, so
+# the last block holds one; a K that is not a multiple of 64, which the TMA
+# fills with zeros); and two ragged shapes that exercise the wmma kernel's
+# row, depth and column masking (dv of 6 and 5 keep them on it in bf16); the
 # second has channel counts that are not multiples of 8 (no 16-byte staging)
 # and dv not a multiple of 4 (the one-channel-per-thread attention stage)
 SHAPES = {
@@ -38,7 +40,13 @@ SHAPES = {
     "x_0_0": (48, 32, 2048, 64, 4, 16),
     "x_1_1": (48, 64, 1024, 32, 4, 8),
     "x_0_1": (48, 64, 256, 64, 4, 16),
+    "vessel_layer4_first": (24, 38, 512, None, 8, 64),
+    "vessel_layer4_shared": (24, 19, 512, None, 8, 64),
+    "vessel_x_0_0": (24, 19, 2048, 64, 4, 16),
+    "vessel_x_1_1": (24, 38, 1024, 32, 4, 8),
+    "vessel_x_0_1": (24, 38, 256, 64, 4, 16),
     "odd_l32": (5, 32, 512, None, 8, 64),
+    "odd_l19": (5, 19, 80, 24, 4, 16),
     "k_tail": (6, 64, 136, 32, 4, 8),
     "ragged": (5, 20, 40, 24, 4, 6),
     "ragged_unaligned": (3, 24, 36, 20, 4, 5),
@@ -103,8 +111,8 @@ def test_axial_attention_kernel_matches_plain(cuda_device, shape, dtype):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_axial_attention_kernel_variant(cuda_device, shape, dtype):
-    # the main-path shapes and the sm90 edge shapes take the sm90 kernel in
-    # bf16; fp32 and the ragged shapes the wmma kernel
+    # the main-path and vessel shapes and the sm90 edge shapes take the sm90
+    # kernel in bf16; fp32 and the ragged shapes the wmma kernel
     dt = getattr(torch, dtype)
     args, kw = _inputs(shape, dt, cuda_device)
     _, L, cq, cv, _, _ = SHAPES[shape]

@@ -151,6 +151,11 @@ inline void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
   const int c[4] = {c0, c1, c2, c3};
   emu_tma_load(dst, map, bar, c, 4);
 }
+inline void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                        int c0, int c1, int c2) {
+  const int c[3] = {c0, c1, c2};
+  emu_tma_load(dst, map, bar, c, 3);
+}
 inline void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                         int c0, int c1) {
   const int c[2] = {c0, c1};

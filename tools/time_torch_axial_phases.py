@@ -1,5 +1,7 @@
 """Per-phase times of K1 (fused axial attention) on the GPU, bf16, at the
-five main-path shapes (``chip_smoke.K1_SHAPES``, 24 views of 1024²).
+five main-path shapes (``chip_smoke.K1_SHAPES``, 24 views of 1024²) and the
+five vessel-path shapes (``chip_smoke.VESSEL_K1_SHAPES``, 16 views of 608²:
+L 38 and 19, which the sm90 kernel pads to 64 and 32).
 
 Builds copies of ``csrc/axial_attention.cu`` with compile-time switches
 applied, one nvcc each, side by side, and times each copy with CUDA events
@@ -64,10 +66,10 @@ SWITCHES = {
     }),
     "sm90": ("axial_sm90.cuh", {
         "no_proj": [("    if (threadIdx.x == kConsumers) produce(",
-                     "    if (L < 0) produce("),
+                     "    if (LP < 0) produce("),
                     ("  project(p, base, full, empty, KQ, V);",
-                     "  if (L < 0) project(p, base, full, empty, KQ, V);")],
-        "no_logits": [("for (int e0 = tid; e0 < q.rg * L;",
+                     "  if (LP < 0) project(p, base, full, empty, KQ, V);")],
+        "no_logits": [("for (int e0 = tid; e0 < q.rg * LP;",
                        "for (int e0 = tid; e0 < 0;"),
                       ("      sm90::mma_m16n8k8_bf16(sc[nt], qa0, qa1, kb0);",
                        "      (void)kb0;")],
@@ -77,7 +79,8 @@ SWITCHES = {
                       ("        sm90::ldmatrix_x2_trans(b, vrow + 16 * kt * "
                        "q.ldv + 8 * dt);\n        sm90::mma_m16n8k16_bf16(o[dt], "
                        "pa[kt], b[0], b[1]);", "        (void)b;")],
-        "no_store": [("        if (grow < p.rows)\n", "        if (grow < 0)\n")],
+        "no_store": [("        if (d < L)   // the pass's sequence is below b\n",
+                      "        if (d < 0)\n")],
         "one_block": [("constexpr int kBlocksPerSM = DV <= 16 ? 2 : 1;",
                        "constexpr int kBlocksPerSM = 1;")],
     }),
@@ -124,8 +127,10 @@ def run_one(name):
     torch.backends.cuda.matmul.allow_tf32 = False
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    failed, per_forward = False, 0.0
-    for shape, (_, _, _, _, _, b, calls) in cs.K1_SHAPES.items():
+    failed, per_forward = False, {"main": 0.0, "vessel": 0.0}
+    shapes = [("main", item) for item in cs.K1_SHAPES.items()]
+    shapes += [("vessel", item) for item in cs.VESSEL_K1_SHAPES.items()]
+    for path, (shape, (L, _, _, _, _, b, calls)) in shapes:
         args, kw = cs.k1_inputs(shape, torch.bfloat16, dev, gen)
 
         def kernel():
@@ -137,8 +142,8 @@ def run_one(name):
         got = kernel()
         torch.cuda.synchronize()
         ms = cs.time_ms(kernel, 10, warm=2)
-        per_forward += calls * ms
-        line = f"{name} {shape} b={b}: {ms:.4f} ms"
+        per_forward[path] += calls * ms
+        line = f"{name} {shape} L={L} b={b}: {ms:.4f} ms"
         if name.endswith("_full"):
             ref_args = list(args)
             ref_args[0], ref_args[1] = args[0].float(), args[1].float()
@@ -151,7 +156,9 @@ def run_one(name):
         print(line, flush=True)
         del args, got
         torch.cuda.empty_cache()
-    print(f"{name} per forward (12 calls): {per_forward:.4f} ms", flush=True)
+    for path, ms in per_forward.items():
+        print(f"{name} per forward of the {path} path (12 calls): {ms:.4f} ms",
+              flush=True)
     return 1 if failed else 0
 
 
